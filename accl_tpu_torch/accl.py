@@ -1,0 +1,294 @@
+"""The public host API (counterpart: ``accl_tpu/accl.py``).
+
+One :class:`ACCL` supervises ``world`` ranks, each a row of the ``(world,
+n)`` tensors of its buffers on one device: the card unless the caller asks
+for the CPU (``device="cpu"``, where every program runs its plain PyTorch
+version). A collective call resolves its algorithm (:func:`.parallel.
+algorithms.select_plan`), takes its program from the LRU
+:class:`.parallel.compiler.ProgramCache` (built on first use), runs it on
+the send buffer's device tensor and stores the result in the receive
+buffer, syncing host mirrors unless ``from_device``/``to_device`` say the
+payload stays on the device. This slice ports ``allreduce``,
+``reduce_scatter`` and ``allgather``; the other collectives, send/recv,
+sub-communicators and the resilience and observability tiers come with
+later slices.
+"""
+from __future__ import annotations
+
+import json
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import constants
+from .arithconfig import DEFAULT_ARITH_CONFIG, ArithConfig
+from .buffer import Buffer
+from .communicator import Communicator
+from .config import ACCLConfig, Algorithm
+from .constants import ACCLError, dataType, errorCode, operation, \
+    reduceFunction
+from .obs import metrics as _metrics
+from .parallel import algorithms
+from .parallel.compiler import ProgramCache
+from .request import Request
+from .utils.bringup import detect_backend
+
+
+class ACCL:
+    """Entry point. ``world``: ranks (default: one per visible device of
+    the device's type); ``device``: ``"cuda"`` by default, ``"cpu"`` to run
+    the plain versions on the host."""
+
+    def __init__(self, world: Optional[int] = None, device=None,
+                 config: Optional[ACCLConfig] = None):
+        device = torch.device("cuda" if device is None else device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise ACCLError(errorCode.CONFIG_ERROR,
+                            "no CUDA device: pass device='cpu' to run the "
+                            "plain versions on the host")
+        if world is None:
+            world = torch.cuda.device_count() if device.type == "cuda" else 1
+        cfg = config or ACCLConfig()
+        if cfg.transport is None:
+            cfg = cfg.replace(transport=detect_backend(device))
+        self._programs = ProgramCache(cfg.program_cache_size)
+        self.config = cfg
+        self.comms = [Communicator(world, device)]
+        self._arith_configs = dict(DEFAULT_ARITH_CONFIG)
+        # the once-per-pair fallback warnings are module-global; a new
+        # session observes its own misconfiguration again
+        algorithms.reset_global_fallback_warnings()
+        self._metrics_baseline = _metrics.snapshot()
+
+    @property
+    def config(self) -> ACCLConfig:
+        return self._config
+
+    @config.setter
+    def config(self, cfg: ACCLConfig) -> None:
+        self._config = cfg
+        self._programs.set_maxsize(cfg.program_cache_size)
+
+    def deinit(self) -> None:
+        self._programs.clear()
+
+    @property
+    def world_size(self) -> int:
+        return self.comms[0].world_size
+
+    @property
+    def device(self) -> torch.device:
+        return self.comms[0].device
+
+    def parse_hwid(self) -> dict:
+        dev = self.device
+        return {
+            "platform": dev.type,
+            "device_name": (torch.cuda.get_device_name(dev)
+                            if dev.type == "cuda" else "cpu"),
+            "world_size": self.world_size,
+            "transport": self.config.transport.value,
+            "arith_enabled": self.config.enable_arith,
+            "compression_enabled": self.config.enable_compression,
+        }
+
+    def create_buffer(self, count: int, dtype: dataType,
+                      host_data: Optional[np.ndarray] = None) -> Buffer:
+        return Buffer(count, dtype, self.comms[0], host_data=host_data)
+
+    # ------------------------------------------------------------------
+    # internal op plumbing
+    # ------------------------------------------------------------------
+
+    def _check_count(self, buf: Buffer, count: int, what: str) -> None:
+        if count > buf.count:
+            raise ACCLError(errorCode.INVALID_BUFFER_SIZE,
+                            f"{what}: count {count} exceeds buffer count "
+                            f"{buf.count}")
+
+    def _arith(self, dt: dataType,
+               compress_dtype: Optional[dataType]) -> Optional[ArithConfig]:
+        if compress_dtype is None or compress_dtype == dt:
+            return self._arith_configs.get((dt, dt))
+        cfg = self._arith_configs.get((dt, compress_dtype))
+        if cfg is None:
+            raise ACCLError(errorCode.COMPRESSION_NOT_SUPPORTED,
+                            f"no arith config for ({dt.name}, "
+                            f"{compress_dtype.name})")
+        if not self.config.enable_compression:
+            raise ACCLError(errorCode.COMPRESSION_NOT_SUPPORTED,
+                            "compression disabled")
+        return cfg
+
+    def _input(self, buf: Buffer, count: int,
+               from_device: bool) -> torch.Tensor:
+        if not from_device:
+            buf.sync_to_device()
+        view = buf.data
+        return view[:, :count] if count != buf.count else view
+
+    def _store(self, buf: Buffer, count: int, value: torch.Tensor) -> None:
+        if count == buf.count:
+            buf.device_store(value.contiguous())
+        else:
+            buf.data[:, :count] = value
+
+    def _finish(self, scenario: operation, out_buf: Buffer, to_device: bool,
+                run_async: bool, errors: list) -> Optional[Request]:
+        def finalizer(_req: Request) -> None:
+            if not to_device:
+                out_buf.sync_from_device()
+
+        req = Request(scenario.name, device=self.device, finalizer=finalizer,
+                      error_words=errors)
+        if run_async:
+            return req
+        req.wait(timeout=self.config.timeout)
+        return None
+
+    def _spec_allreduce(self, count: int, dtype: dataType,
+                        function: reduceFunction, compress_dtype, algorithm):
+        comm = self.comms[0]
+        arith = self._arith(dtype, compress_dtype)
+        if arith is not None and not arith.supports(function):
+            raise ACCLError(errorCode.ARITH_ERROR, f"{function} unsupported")
+        algo, _ = algorithms.select_plan(
+            operation.allreduce, count * constants.dtype_size(dtype), comm,
+            self.config, algorithm, count=count)
+        seg = self.config.segment_size
+        bidir = self.config.bidirectional_rings
+        return ((operation.allreduce, count, dtype, function,
+                 compress_dtype, algo, seg, bidir),
+                lambda: algorithms.build_allreduce(comm, function, dtype,
+                                                   algo, arith, seg, bidir))
+
+    def _spec_reduce_scatter(self, count: int, dtype: dataType,
+                             function: reduceFunction, compress_dtype,
+                             algorithm):
+        comm = self.comms[0]
+        arith = self._arith(dtype, compress_dtype)
+        if arith is not None and not arith.supports(function):
+            raise ACCLError(errorCode.ARITH_ERROR, f"{function} unsupported")
+        algo, _ = algorithms.select_plan(
+            operation.reduce_scatter,
+            count * comm.world_size * constants.dtype_size(dtype), comm,
+            self.config, algorithm, count=count * comm.world_size)
+        seg = self.config.segment_size
+        bidir = self.config.bidirectional_rings
+        return ((operation.reduce_scatter, count, dtype, function,
+                 compress_dtype, algo, seg, bidir),
+                lambda: algorithms.build_reduce_scatter(comm, function, dtype,
+                                                        algo, arith, seg,
+                                                        bidir))
+
+    def _spec_allgather(self, count: int, dtype: dataType, compress_dtype,
+                        algorithm):
+        comm = self.comms[0]
+        arith = self._arith(dtype, compress_dtype)
+        algo, _ = algorithms.select_plan(
+            operation.allgather, count * constants.dtype_size(dtype), comm,
+            self.config, algorithm, count=count)
+        seg = self.config.segment_size
+        bidir = self.config.bidirectional_rings
+        return ((operation.allgather, count, dtype, compress_dtype, algo,
+                 seg, bidir),
+                lambda: algorithms.build_allgather(comm, algo, arith, dtype,
+                                                   seg, bidir))
+
+    # ------------------------------------------------------------------
+    # collectives
+    # ------------------------------------------------------------------
+
+    def allreduce(self, sendbuf: Buffer, recvbuf: Buffer, count: int,
+                  function: reduceFunction, from_device: bool = False,
+                  to_device: bool = False, run_async: bool = False,
+                  compress_dtype: Optional[dataType] = None,
+                  algorithm: Optional[Algorithm] = None
+                  ) -> Optional[Request]:
+        """Every rank ends with the reduction of every rank's ``count``
+        elements."""
+        t0 = _metrics.tick()
+        self._check_count(sendbuf, count, "allreduce send")
+        self._check_count(recvbuf, count, "allreduce recv")
+        x = self._input(sendbuf, count, from_device)
+        key, build = self._spec_allreduce(count, sendbuf.dtype, function,
+                                          compress_dtype, algorithm)
+        prog = self._programs.get(key, build)
+        errors: list = []
+        self._store(recvbuf, count, prog(x, errors).to(recvbuf.torch_dtype))
+        _metrics.note_call(operation.allreduce,
+                           count * constants.dtype_size(sendbuf.dtype),
+                           sendbuf.dtype, key, t0)
+        return self._finish(operation.allreduce, recvbuf, to_device,
+                            run_async, errors)
+
+    def reduce_scatter(self, sendbuf: Buffer, recvbuf: Buffer, count: int,
+                       function: reduceFunction, from_device: bool = False,
+                       to_device: bool = False, run_async: bool = False,
+                       compress_dtype: Optional[dataType] = None,
+                       algorithm: Optional[Algorithm] = None
+                       ) -> Optional[Request]:
+        """``count * world`` in, ``count`` out per rank: rank r gets the
+        reduction of every rank's chunk r."""
+        t0 = _metrics.tick()
+        world = self.world_size
+        self._check_count(sendbuf, count * world, "reduce_scatter send")
+        self._check_count(recvbuf, count, "reduce_scatter recv")
+        x = self._input(sendbuf, count * world, from_device)
+        key, build = self._spec_reduce_scatter(count, sendbuf.dtype,
+                                               function, compress_dtype,
+                                               algorithm)
+        prog = self._programs.get(key, build)
+        errors: list = []
+        self._store(recvbuf, count, prog(x, errors).to(recvbuf.torch_dtype))
+        _metrics.note_call(operation.reduce_scatter,
+                           count * world * constants.dtype_size(sendbuf.dtype),
+                           sendbuf.dtype, key, t0)
+        return self._finish(operation.reduce_scatter, recvbuf, to_device,
+                            run_async, errors)
+
+    def allgather(self, sendbuf: Buffer, recvbuf: Buffer, count: int,
+                  from_device: bool = False, to_device: bool = False,
+                  run_async: bool = False,
+                  compress_dtype: Optional[dataType] = None,
+                  algorithm: Optional[Algorithm] = None
+                  ) -> Optional[Request]:
+        """``count`` in, ``count * world`` out per rank, rank j's block at
+        slot j."""
+        t0 = _metrics.tick()
+        world = self.world_size
+        self._check_count(sendbuf, count, "allgather send")
+        self._check_count(recvbuf, count * world, "allgather recv")
+        x = self._input(sendbuf, count, from_device)
+        key, build = self._spec_allgather(count, sendbuf.dtype,
+                                          compress_dtype, algorithm)
+        prog = self._programs.get(key, build)
+        errors: list = []
+        self._store(recvbuf, count * world,
+                    prog(x, errors).to(recvbuf.torch_dtype))
+        _metrics.note_call(operation.allgather,
+                           count * constants.dtype_size(sendbuf.dtype),
+                           sendbuf.dtype, key, t0)
+        return self._finish(operation.allgather, recvbuf, to_device,
+                            run_async, errors)
+
+    # ------------------------------------------------------------------
+    # introspection
+    # ------------------------------------------------------------------
+
+    def stats(self) -> dict:
+        """JSON-serializable snapshot: hwid, resolved config, program-cache
+        state and the metrics delta since construction."""
+        progs, hits, misses = self._programs.stats()
+        return {
+            "schema": _metrics.SCHEMA_VERSION,
+            "schema_version": _metrics.SCHEMA_VERSION,
+            "hwid": self.parse_hwid(),
+            "config": json.loads(self.config.to_json()),
+            "program_cache": {"programs": progs, "hits": hits,
+                              "misses": misses,
+                              "evictions": self._programs.evictions,
+                              "max_size": self._programs.maxsize},
+            "metrics": _metrics.delta(self._metrics_baseline),
+        }

@@ -1,0 +1,132 @@
+"""Build and load the port's hand-written CUDA kernels (no JAX counterpart:
+``accl_tpu`` compiles its Pallas kernels through XLA at trace time).
+
+The sources under ``accl_tpu_torch/csrc/`` are compiled with ``nvcc`` for
+``sm_90a`` into shared libraries with a plain C interface, loaded with
+``ctypes``. The build runs at first use, never at import, into
+``accl_tpu_torch/_cuda_build/`` (listed in ``.gitignore``); a library is
+named by the hash of its source, so an edited source rebuilds and an
+unchanged one loads the library already built. Every source builds in its
+own ``nvcc`` process, all started together.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+_PKG = Path(__file__).resolve().parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_cuda_build"
+#: sources, by library name
+SOURCES = {"ring": SRC_DIR / "ring.cu"}
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+
+_libs: Dict[str, ctypes.CDLL] = {}
+#: nvcc's report (registers, spills) of the builds this process ran
+build_log: Dict[str, str] = {}
+
+
+def nvcc() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else the toolkit's usual
+    place, else whatever ``nvcc`` is on the PATH."""
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME)")
+    return found
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha256(SOURCES[name].read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"libaccl_{name}_{digest}.so"
+
+
+def build(names=None) -> float:
+    """Compile every named source that has no library yet, one ``nvcc``
+    each, in parallel. Returns the seconds spent; raises with the
+    compiler's output when a build fails."""
+    names = list(names or SOURCES)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = {}
+    for name in names:
+        so = _target(name)
+        if so.exists():
+            continue
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, so)
+    failed = []
+    for name, (proc, tmp, so) in procs.items():
+        out, _ = proc.communicate()
+        build_log[name] = out
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exit {proc.returncode}\n{out}")
+            continue
+        os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def load(name: str = "ring") -> ctypes.CDLL:
+    """The loaded library ``name``, built first if needed."""
+    lib = _libs.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(_target(name)))
+        _declare(lib)
+        _libs[name] = lib
+    return lib
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    c_int, c_ll, c_p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    lib.accl_ring_capacity.argtypes = [c_int, c_int, c_int, c_int,
+                                       ctypes.POINTER(c_int)]
+    lib.accl_ring_capacity.restype = c_int
+    lib.accl_ring_threads.argtypes = []
+    lib.accl_ring_threads.restype = c_int
+    lib.accl_ring_rs.argtypes = [c_int, c_int, c_int, u64p, u64p, u64p, c_p,
+                                 c_int, c_int, c_ll, c_int, c_int, c_int,
+                                 c_int, ctypes.c_float, ctypes.c_double, c_p]
+    lib.accl_ring_rs.restype = c_int
+    lib.accl_ring_ag.argtypes = [c_int, c_int, u64p, u64p, c_p, c_int, c_int,
+                                 c_ll, c_int, c_int, c_int, ctypes.c_double,
+                                 c_p]
+    lib.accl_ring_ag.restype = c_int
+    lib.accl_ring_error_string.argtypes = [c_int]
+    lib.accl_ring_error_string.restype = ctypes.c_char_p
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise when a C entry point returned a CUDA error."""
+    if rc != 0:
+        msg = lib.accl_ring_error_string(rc)
+        raise RuntimeError(f"{what}: CUDA error {rc} "
+                           f"({msg.decode() if msg else '?'})")
+
+
+def pointer_table(rows) -> ctypes.Array:
+    """Per-rank pointer table (``uint64_t[P]``) of a tensor's rows."""
+    ptrs = [int(row.data_ptr()) for row in rows]
+    return (ctypes.c_uint64 * len(ptrs))(*ptrs)
+
+
+def stream_handle(device) -> Optional[int]:
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,314 @@
+"""Runtime algorithm selection and builder dispatch (counterpart:
+``accl_tpu/parallel/algorithms.py``).
+
+:func:`select` resolves the algorithm family for one call from (operation,
+payload bytes, world, config) with the JAX package's scalar-threshold
+ladder (``_select_legacy``, verbatim) and its decline counters. On the
+intra-node tier (``TransportBackend.ICI``, the card) allreduce takes the
+ring kernels (``Algorithm.PALLAS``) from ``pallas_threshold`` up.
+
+The JAX package then hands the ladder's decision to the schedule
+synthesizer (``accl_tpu/parallel/synth.py:resolve``). Of it this port
+keeps the one part that changes a single-axis mesh's resolution under
+default config: the small-message latency tier, which below
+``latency_tier_threshold`` bytes picks the cheapest of the one-shot, flat
+and tree schedules by the α-β cost model (flat for an allreduce at world 8).
+The multi-axis, two-tier and full-authority searches are not ported: the
+ranks of one card form a single axis, and on a single-axis mesh with
+default config they return the ladder's decision. The registers that steer
+them stay inert here.
+
+Dispatch builds XLA-role one-shot programs (:mod:`.primitives`), the flat
+allreduce (:mod:`.flat`) and the ring kernels (``PALLAS``); the RING, TREE,
+HIERARCHICAL, MULTIAXIS and TWOTIER families raise
+``COLLECTIVE_NOT_IMPLEMENTED`` until their slices land.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional, Tuple
+
+from ..arithconfig import ArithConfig
+from ..communicator import Communicator
+from ..config import ACCLConfig, Algorithm, TransportBackend
+from ..constants import (ACCLError, dataType, errorCode, operation,
+                         reduceFunction)
+from ..obs import metrics as _metrics
+from . import flat, pallas_ring, primitives
+
+_SUPPORTED = {
+    operation.bcast: {Algorithm.XLA, Algorithm.FLAT, Algorithm.TREE,
+                      Algorithm.RING, Algorithm.PALLAS},
+    operation.reduce: {Algorithm.XLA, Algorithm.FLAT, Algorithm.TREE,
+                       Algorithm.RING, Algorithm.PALLAS},
+    operation.allreduce: {Algorithm.XLA, Algorithm.FLAT, Algorithm.TREE,
+                          Algorithm.RING, Algorithm.HIERARCHICAL,
+                          Algorithm.PALLAS, Algorithm.MULTIAXIS,
+                          Algorithm.TWOTIER},
+    operation.allgather: {Algorithm.XLA, Algorithm.RING, Algorithm.PALLAS,
+                          Algorithm.MULTIAXIS, Algorithm.TWOTIER},
+    operation.reduce_scatter: {Algorithm.XLA, Algorithm.RING,
+                               Algorithm.PALLAS, Algorithm.MULTIAXIS,
+                               Algorithm.TWOTIER},
+    operation.scatter: {Algorithm.XLA, Algorithm.FLAT, Algorithm.PALLAS},
+    operation.gather: {Algorithm.XLA, Algorithm.FLAT, Algorithm.RING,
+                       Algorithm.PALLAS},
+    operation.alltoall: {Algorithm.XLA, Algorithm.FLAT, Algorithm.PALLAS},
+}
+
+#: the bandwidth collectives the JAX synthesizer resolves
+SYNTH_OPS = (operation.allreduce, operation.allgather,
+             operation.reduce_scatter)
+
+#: legacy registers whose non-default value (an autotune seed) pins the
+#: ladder's decision for the op they govern
+_SEED_FIELDS = {
+    operation.allreduce: ("ring_threshold", "hier_threshold",
+                          "dcn_hier_threshold", "pallas_threshold"),
+    operation.allgather: ("ag_ring_threshold", "ag_pallas_threshold"),
+    operation.reduce_scatter: ("rs_ring_threshold", "rs_pallas_threshold"),
+}
+
+#: ROADMAP.md queue-1 item that ports each family still missing
+_ROADMAP_ITEM = {
+    Algorithm.RING: "queue 1, item 4 (parallel/ring.py)",
+    Algorithm.TREE: "queue 1, item 4 (parallel/tree.py)",
+    Algorithm.HIERARCHICAL: "queue 1, item 4 (parallel/hierarchical.py)",
+    Algorithm.MULTIAXIS: "queue 1, item 8 (parallel/synth.py)",
+    Algorithm.TWOTIER: "queue 1, item 8 (parallel/synth.py)",
+}
+
+
+def supported(op: operation, algo: Algorithm) -> bool:
+    return algo in _SUPPORTED.get(op, {Algorithm.XLA})
+
+
+#: (algorithm, op) pairs already warned about; cleared per session
+_warned_global_fallback: set = set()
+
+
+def reset_global_fallback_warnings() -> None:
+    _warned_global_fallback.clear()
+
+
+def factor2d(world: int) -> Optional[Tuple[int, int]]:
+    """Most-square (rows, cols) factorization, None if world is prime/1."""
+    best = None
+    for rows in range(2, int(world ** 0.5) + 1):
+        if world % rows == 0:
+            best = (rows, world // rows)
+    return best
+
+
+def _hier_shape(comm: Communicator, on_dcn: bool = False):
+    hs = comm.hosts_shape()
+    if hs is not None:
+        return hs
+    if on_dcn:
+        return None
+    return factor2d(comm.world_size)
+
+
+def select(op: operation, nbytes: int, comm: Communicator, cfg: ACCLConfig,
+           requested: Optional[Algorithm] = None,
+           count: Optional[int] = None) -> Algorithm:
+    """Resolve the algorithm for one call; every resolution is counted
+    (``accl_algorithm_selected_total``)."""
+    algo, _ = select_plan(op, nbytes, comm, cfg, requested, count)
+    return algo
+
+
+def select_plan(op: operation, nbytes: int, comm: Communicator,
+                cfg: ACCLConfig, requested: Optional[Algorithm] = None,
+                count: Optional[int] = None):
+    """:func:`select` plus the source of the decision: ``"legacy"`` (the
+    ladder), ``"latency_tier"``, or None (an explicit request, world 1, an
+    op outside :data:`SYNTH_OPS`). The JAX package returns its
+    ``SchedulePlan`` here; the port has no plans to carry yet."""
+    algo, source = _select(op, nbytes, comm, cfg, requested, count)
+    _metrics.inc("accl_algorithm_selected_total",
+                 labels=(("op", op.name), ("algorithm", algo.value)))
+    return algo, source
+
+
+def _select(op, nbytes, comm, cfg, requested=None, count=None):
+    algo = requested or cfg.algorithm
+    if algo != Algorithm.AUTO:
+        if supported(op, algo):
+            return algo, None
+        if requested is not None:
+            raise ValueError(f"{algo} not supported for {op.name}")
+        _metrics.inc("accl_algorithm_fallback_total",
+                     labels=(("op", op.name), ("algorithm", algo.value)))
+        if (algo, op) not in _warned_global_fallback:
+            _warned_global_fallback.add((algo, op))
+            from ..utils.logging import get_logger
+            get_logger("algorithms").warning(
+                "session algorithm %s unsupported for %s; using AUTO",
+                algo.name, op.name)
+    if comm.world_size == 1:
+        return Algorithm.XLA, None
+    legacy = _select_legacy(op, nbytes, comm, cfg, count)
+    if op in SYNTH_OPS:
+        if (cfg.sched_synthesis and cfg.transport != TransportBackend.DCN
+                and nbytes < cfg.latency_tier_threshold
+                and not _seed_overridden(op, cfg)):
+            return _latency_choice(op, nbytes, comm.world_size, cfg), \
+                "latency_tier"
+        return legacy, "legacy"
+    return legacy, None
+
+
+def _seed_overridden(op: operation, cfg: ACCLConfig) -> bool:
+    defaults = ACCLConfig()
+    return any(getattr(cfg, f) != getattr(defaults, f)
+               for f in _SEED_FIELDS.get(op, ()))
+
+
+def _ceil_log2(n: int) -> int:
+    return max(1, math.ceil(math.log2(n))) if n > 1 else 0
+
+
+def _latency_choice(op: operation, nbytes: int, P: int,
+                    cfg: ACCLConfig) -> Algorithm:
+    """The latency tier (``synth.py:_latency_plan``): the argmin of the α-β
+    cost over XLA's log-depth single shot, the 2-hop flat star and the
+    binary tree; flat and tree exist for allreduce only. Ties keep the
+    earlier candidate, as ``min`` does there."""
+    alpha, beta = cfg.sched_alpha_us, cfg.sched_beta_gbps
+    k = 2 if cfg.bidirectional_rings else 1
+    N = nbytes * P if op == operation.allgather else nbytes
+    lg = _ceil_log2(P)
+
+    def step(hops, link_bytes, channels):
+        return alpha * hops + float(link_bytes) / (max(channels, 1) * beta
+                                                   * 1e3)
+
+    per = N * (P - 1) / P
+    if op == operation.allreduce:
+        cands = [
+            (Algorithm.XLA, sum([step(lg, per, k), step(lg, per, k)])),
+            (Algorithm.FLAT, sum([step(1, N * (P - 1), 1),
+                                  step(1, N * (P - 1), 1)])),
+            (Algorithm.TREE, sum([step(lg, N * lg, k),
+                                  step(lg, N * lg, k)])),
+        ]
+    else:
+        cands = [(Algorithm.XLA, sum([step(lg, per, k)]))]
+    return min(cands, key=lambda c: c[1])[0]
+
+
+def _select_legacy(op: operation, nbytes: int, comm: Communicator,
+                   cfg: ACCLConfig, count: Optional[int] = None) -> Algorithm:
+    """The scalar-threshold ladder, as in the JAX package."""
+    world = comm.world_size
+    on_dcn = cfg.transport == TransportBackend.DCN
+    if on_dcn:
+        if op == operation.allreduce and nbytes >= cfg.dcn_hier_threshold:
+            if comm.hosts_shape() is not None:
+                return Algorithm.HIERARCHICAL
+            _metrics.inc("accl_select_decline_total",
+                         labels=(("op", op.name),
+                                 ("reason", "dcn_no_host_shape")))
+        if op in (operation.bcast, operation.reduce) \
+                and nbytes > cfg.max_eager_size:
+            return Algorithm.TREE
+    if cfg.transport == TransportBackend.ICI:
+        pallas_at = {
+            operation.allreduce: cfg.pallas_threshold,
+            operation.allgather: cfg.ag_pallas_threshold,
+            operation.reduce_scatter: cfg.rs_pallas_threshold,
+            operation.bcast: cfg.bcast_pallas_threshold,
+            operation.gather: cfg.gather_pallas_threshold,
+            operation.scatter: cfg.scatter_pallas_threshold,
+            operation.alltoall: cfg.alltoall_pallas_threshold,
+            operation.reduce: cfg.reduce_pallas_threshold,
+        }.get(op)
+        if pallas_at is not None and nbytes >= pallas_at:
+            return Algorithm.PALLAS
+    if op == operation.allreduce and nbytes >= cfg.hier_threshold:
+        if _hier_shape(comm, on_dcn) is not None:
+            return Algorithm.HIERARCHICAL
+        _metrics.inc("accl_select_decline_total",
+                     labels=(("op", op.name),
+                             ("reason", "dcn_no_host_shape" if on_dcn
+                              else "no_2d_shape")))
+    if op == operation.allreduce and nbytes >= cfg.ring_threshold:
+        return Algorithm.RING
+    if op == operation.allgather and nbytes >= cfg.ag_ring_threshold:
+        return Algorithm.RING
+    if op == operation.reduce_scatter and nbytes >= cfg.rs_ring_threshold:
+        return Algorithm.RING
+    if nbytes > cfg.max_eager_size:
+        if op == operation.bcast:
+            return (Algorithm.FLAT
+                    if world <= cfg.bcast_flat_tree_max_ranks
+                    else Algorithm.TREE)
+        if op == operation.reduce:
+            small = count is not None and \
+                count <= cfg.reduce_flat_tree_max_count
+            return (Algorithm.FLAT
+                    if world <= cfg.reduce_flat_tree_max_ranks or small
+                    else Algorithm.TREE)
+        if op in (operation.scatter, operation.gather, operation.alltoall):
+            return Algorithm.FLAT
+    return Algorithm.XLA
+
+
+# ---------------------------------------------------------------------------
+# builder dispatch
+# ---------------------------------------------------------------------------
+
+def _not_ported(op: operation, algo: Algorithm) -> ACCLError:
+    where = _ROADMAP_ITEM.get(algo, "a later slice")
+    return ACCLError(errorCode.COLLECTIVE_NOT_IMPLEMENTED,
+                     f"{algo.name} {op.name} is not ported yet "
+                     f"(ROADMAP.md {where})")
+
+
+def _no_kernels(prog: Callable) -> Callable:
+    """Give a program of plain torch operations the builders' interface,
+    ``prog(x, errors=None)``; it launches no kernel, so it has no error
+    words to append."""
+    return lambda x, errors=None: prog(x)
+
+
+def build_allreduce(comm, func: reduceFunction, dt: dataType, algo: Algorithm,
+                    arith: Optional[ArithConfig],
+                    segment_bytes: Optional[int] = None,
+                    bidirectional: bool = False) -> Callable:
+    if algo == Algorithm.PALLAS:
+        return pallas_ring.build_pallas_ring_allreduce(
+            comm, func, dt, segment_bytes, arith=arith,
+            bidirectional=bidirectional)
+    if algo == Algorithm.FLAT:
+        return _no_kernels(flat.build_flat_allreduce(comm, func, dt, arith))
+    if algo == Algorithm.XLA:
+        return _no_kernels(primitives.build_allreduce(comm, func, dt, arith))
+    raise _not_ported(operation.allreduce, algo)
+
+
+def build_allgather(comm, algo: Algorithm, arith: Optional[ArithConfig],
+                    dt: dataType, segment_bytes: Optional[int] = None,
+                    bidirectional: bool = False) -> Callable:
+    if algo == Algorithm.PALLAS:
+        return pallas_ring.build_pallas_ring_allgather(
+            comm, dt, segment_bytes, arith=arith,
+            bidirectional=bidirectional)
+    if algo == Algorithm.XLA:
+        return _no_kernels(primitives.build_allgather(comm, arith))
+    raise _not_ported(operation.allgather, algo)
+
+
+def build_reduce_scatter(comm, func: reduceFunction, dt: dataType,
+                         algo: Algorithm, arith: Optional[ArithConfig],
+                         segment_bytes: Optional[int] = None,
+                         bidirectional: bool = False) -> Callable:
+    if algo == Algorithm.PALLAS:
+        return pallas_ring.build_pallas_ring_reduce_scatter(
+            comm, func, dt, segment_bytes, arith=arith,
+            bidirectional=bidirectional)
+    if algo == Algorithm.XLA:
+        return _no_kernels(primitives.build_reduce_scatter(comm, func, dt,
+                                                           arith))
+    raise _not_ported(operation.reduce_scatter, algo)

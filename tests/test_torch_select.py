@@ -1,0 +1,106 @@
+"""Selection parity: the port's ``algorithms.select`` resolves the same
+algorithm family as the JAX package's for allreduce, reduce-scatter and
+all-gather over a 4 B - 1 GiB sweep (the ladder plus the synthesizer's
+latency tier), on the intra-node tier and the emulator rung."""
+import jax
+import pytest
+import torch
+
+from accl_tpu.communicator import Communicator as JComm
+from accl_tpu.config import ACCLConfig as JCfg
+from accl_tpu.config import TransportBackend as JT
+from accl_tpu.constants import operation as JOp
+from accl_tpu.parallel import algorithms as jalg
+
+import accl_tpu_torch as at
+from accl_tpu_torch.parallel import algorithms as talg
+
+torch.set_num_threads(1)
+
+OPS = ("allreduce", "reduce_scatter", "allgather")
+SIZES = [1 << e for e in range(2, 31)] + [3, 1000, 8191, 8192, 1048575]
+
+
+def test_select_parity_sweep():
+    """Every op and size at worlds 2, 3 and 8, on the intra-node tier and
+    the emulator rung."""
+    for world in (2, 3, 8):
+        jcomm = JComm(jax.devices()[:world])
+        tcomm = at.Communicator(world, "cpu")
+        for transport in ("ici", "sim"):
+            jcfg = JCfg(transport=JT(transport))
+            tcfg = at.ACCLConfig(transport=at.TransportBackend(transport))
+            for op in OPS:
+                for nbytes in SIZES:
+                    j = jalg.select(JOp[op], nbytes, jcomm, jcfg,
+                                    count=nbytes // 4)
+                    t = talg.select(at.operation[op], nbytes, tcomm, tcfg,
+                                    count=nbytes // 4)
+                    assert t.value == j.value, (op, nbytes, world,
+                                                transport)
+
+
+def _main_path_families_at_world8():
+    """What the allreduce sweep runs on the card: flat below the latency
+    tier, the one-shot program up to 1 MiB, the ring kernels from there."""
+    tcomm = at.Communicator(8, "cpu")
+    cfg = at.ACCLConfig(transport=at.TransportBackend.ICI)
+    op = at.operation.allreduce
+    assert talg.select(op, 4, tcomm, cfg) == at.Algorithm.FLAT
+    assert talg.select(op, 8192, tcomm, cfg) == at.Algorithm.XLA
+    assert talg.select(op, (1 << 20) - 4, tcomm, cfg) == at.Algorithm.XLA
+    for nbytes in (1 << 20, 1 << 30):
+        assert talg.select(op, nbytes, tcomm, cfg) == at.Algorithm.PALLAS
+
+
+def test_select_parity_non_default_registers():
+    """A seeded threshold pins the ladder; a zero tier or synthesis off
+    drops the latency tier: both packages agree on every size."""
+    jcomm = JComm(jax.devices()[:8])
+    tcomm = at.Communicator(8, "cpu")
+    for field, value in (("pallas_threshold", 2 << 20),
+                         ("latency_tier_threshold", 0),
+                         ("sched_synthesis", False)):
+        jcfg = JCfg(transport=JT.ICI).replace(**{field: value})
+        tcfg = at.ACCLConfig(transport=at.TransportBackend.ICI).replace(
+            **{field: value})
+        for nbytes in SIZES:
+            j = jalg.select(JOp.allreduce, nbytes, jcomm, jcfg)
+            t = talg.select(at.operation.allreduce, nbytes, tcomm, tcfg)
+            assert t.value == j.value, (field, nbytes)
+
+
+def _explicit_request_and_fallback():
+    tcomm = at.Communicator(8, "cpu")
+    cfg = at.ACCLConfig(transport=at.TransportBackend.ICI)
+    assert talg.select(at.operation.allreduce, 4, tcomm, cfg,
+                       requested=at.Algorithm.PALLAS) == at.Algorithm.PALLAS
+    with pytest.raises(ValueError):
+        talg.select(at.operation.allgather, 4, tcomm, cfg,
+                    requested=at.Algorithm.FLAT)
+    # a session preference the op cannot honor falls back to AUTO, counted
+    from accl_tpu_torch.obs import metrics
+    before = metrics.snapshot()
+    sess = cfg.replace(algorithm=at.Algorithm.FLAT)
+    assert talg.select(at.operation.allgather, 1 << 20, tcomm, sess) == \
+        at.Algorithm.PALLAS
+    d = metrics.delta(before)["counters"]
+    assert d['accl_algorithm_fallback_total{op="allgather",'
+             'algorithm="flat"}'] == 1.0
+
+
+def _unported_families_raise():
+    tcomm = at.Communicator(8, "cpu")
+    for algo in ("ring", "tree", "hier", "multiaxis", "twotier"):
+        with pytest.raises(at.ACCLError) as ei:
+            talg.build_allreduce(tcomm, at.reduceFunction.SUM,
+                                 at.dataType.float32, at.Algorithm(algo),
+                                 None)
+        assert ei.value.code == at.errorCode.COLLECTIVE_NOT_IMPLEMENTED
+        assert "ROADMAP.md" in str(ei.value)
+
+
+def test_select_behaviour():
+    _main_path_families_at_world8()
+    _explicit_request_and_fallback()
+    _unported_families_raise()
