@@ -8,10 +8,11 @@ algorithms.select_plan`), takes its program from the LRU
 :class:`.parallel.compiler.ProgramCache` (built on first use), runs it on
 the send buffer's device tensor and stores the result in the receive
 buffer, syncing host mirrors unless ``from_device``/``to_device`` say the
-payload stays on the device. This slice ports ``allreduce``,
-``reduce_scatter`` and ``allgather``; the other collectives, send/recv,
-sub-communicators and the resilience and observability tiers come with
-later slices.
+payload stays on the device. Ported so far: ``allreduce``,
+``reduce_scatter`` and ``allgather`` with every algorithm family but
+MULTIAXIS, the local primitives ``copy`` and ``combine``, and
+``write_arithconfig``; the rooted collectives, send/recv, sub-communicators
+and the resilience and observability tiers come with later slices.
 """
 from __future__ import annotations
 
@@ -25,11 +26,11 @@ from . import constants
 from .arithconfig import DEFAULT_ARITH_CONFIG, ArithConfig
 from .buffer import Buffer
 from .communicator import Communicator
-from .config import ACCLConfig, Algorithm
+from .config import ACCLConfig, Algorithm, TransportBackend
 from .constants import ACCLError, dataType, errorCode, operation, \
     reduceFunction
 from .obs import metrics as _metrics
-from .parallel import algorithms
+from .parallel import algorithms, hierarchical, primitives
 from .parallel.compiler import ProgramCache
 from .request import Request
 from .utils.bringup import detect_backend
@@ -67,6 +68,10 @@ class ACCL:
 
     @config.setter
     def config(self, cfg: ACCLConfig) -> None:
+        """Write-through: the registers that steer module-level policy are
+        applied on every assignment (a bad ``dcn_wire_dtype`` raises
+        ValueError naming the register and leaves the config as it was)."""
+        hierarchical.set_dcn_wire_dtype(cfg.dcn_wire_dtype)
         self._config = cfg
         self._programs.set_maxsize(cfg.program_cache_size)
 
@@ -96,6 +101,33 @@ class ACCL:
     def create_buffer(self, count: int, dtype: dataType,
                       host_data: Optional[np.ndarray] = None) -> Buffer:
         return Buffer(count, dtype, self.comms[0], host_data=host_data)
+
+    def write_arithconfig(self, cfg: ArithConfig) -> None:
+        """Register a datapath policy for a dtype pair (``ACCL::
+        write_arithconfig``). A quantized int8 wire, ``ArithConfig(float32,
+        int8, quant_scale=s, arith_is_compressed=False)``, sends
+        clip(round(x*s)) on every hop and decompresses before any
+        arithmetic. On the families that recompress partial sums every hop
+        (RING, TREE, FLAT, PALLAS) each partial must satisfy
+        ``|partial| <= 127 / quant_scale``; beyond it values clip
+        silently."""
+        if cfg.quant_scale is not None:
+            if cfg.arith_is_compressed:
+                raise ACCLError(
+                    errorCode.COMPRESSION_NOT_SUPPORTED,
+                    "quantized wire pairs must decompress before arithmetic "
+                    "(set arith_is_compressed=False): integer sums across "
+                    "ranks would overflow the wire dtype")
+            if cfg.quant_scale <= 0:
+                raise ACCLError(
+                    errorCode.COMPRESSION_NOT_SUPPORTED,
+                    f"quant_scale must be positive, got {cfg.quant_scale}")
+            if cfg.compressed != dataType.int8:
+                raise ACCLError(
+                    errorCode.COMPRESSION_NOT_SUPPORTED,
+                    "quant_scale applies to int8 wire dtypes only; float "
+                    "wires are plain casts")
+        self._arith_configs[(cfg.uncompressed, cfg.compressed)] = cfg
 
     # ------------------------------------------------------------------
     # internal op plumbing
@@ -147,6 +179,31 @@ class ACCL:
         req.wait(timeout=self.config.timeout)
         return None
 
+    def _spec_copy(self, count: int, dtype: dataType):
+        comm = self.comms[0]
+        return ((operation.copy, count, dtype),
+                lambda: primitives.build_copy(comm))
+
+    def _spec_combine(self, count: int, dtype: dataType,
+                      function: reduceFunction):
+        comm = self.comms[0]
+        use_pallas = self.config.use_pallas and self.config.enable_arith
+        return ((operation.combine, count, dtype, function, use_pallas),
+                lambda: primitives.build_combine(comm, function, dtype,
+                                                 use_pallas=use_pallas))
+
+    def _twotier_params(self, comm, algo):
+        """(slices x per-slice shape, cross-slice wire dtype) of a TWOTIER
+        program: both in its cache key, so a re-tuned ``dcn_wire_dtype``
+        builds anew. Only an explicit ``algorithm=TWOTIER`` request reaches
+        here (AUTO never resolves the family in this port): the physical
+        ``hosts_shape``, else ``factor2d`` (ranks on one card have no host
+        boundary), and the session wire register."""
+        if algo != Algorithm.TWOTIER:
+            return (None, None)
+        return (algorithms._twotier_shape(comm, None),
+                self.config.dcn_wire_dtype)
+
     def _spec_allreduce(self, count: int, dtype: dataType,
                         function: reduceFunction, compress_dtype, algorithm):
         comm = self.comms[0]
@@ -158,10 +215,13 @@ class ACCL:
             self.config, algorithm, count=count)
         seg = self.config.segment_size
         bidir = self.config.bidirectional_rings
+        on_dcn = self.config.transport == TransportBackend.DCN
+        ts, dw = self._twotier_params(comm, algo)
         return ((operation.allreduce, count, dtype, function,
-                 compress_dtype, algo, seg, bidir),
-                lambda: algorithms.build_allreduce(comm, function, dtype,
-                                                   algo, arith, seg, bidir))
+                 compress_dtype, algo, seg, bidir, on_dcn, ts, dw),
+                lambda: algorithms.build_allreduce(
+                    comm, function, dtype, algo, arith, seg, bidir,
+                    on_dcn=on_dcn, mesh_shape=ts, dcn_wire_dtype=dw))
 
     def _spec_reduce_scatter(self, count: int, dtype: dataType,
                              function: reduceFunction, compress_dtype,
@@ -176,11 +236,12 @@ class ACCL:
             self.config, algorithm, count=count * comm.world_size)
         seg = self.config.segment_size
         bidir = self.config.bidirectional_rings
+        ts, dw = self._twotier_params(comm, algo)
         return ((operation.reduce_scatter, count, dtype, function,
-                 compress_dtype, algo, seg, bidir),
-                lambda: algorithms.build_reduce_scatter(comm, function, dtype,
-                                                        algo, arith, seg,
-                                                        bidir))
+                 compress_dtype, algo, seg, bidir, ts, dw),
+                lambda: algorithms.build_reduce_scatter(
+                    comm, function, dtype, algo, arith, seg, bidir,
+                    mesh_shape=ts, dcn_wire_dtype=dw))
 
     def _spec_allgather(self, count: int, dtype: dataType, compress_dtype,
                         algorithm):
@@ -191,10 +252,58 @@ class ACCL:
             self.config, algorithm, count=count)
         seg = self.config.segment_size
         bidir = self.config.bidirectional_rings
+        ts, dw = self._twotier_params(comm, algo)
         return ((operation.allgather, count, dtype, compress_dtype, algo,
-                 seg, bidir),
-                lambda: algorithms.build_allgather(comm, algo, arith, dtype,
-                                                   seg, bidir))
+                 seg, bidir, ts, dw),
+                lambda: algorithms.build_allgather(
+                    comm, algo, arith, dtype, seg, bidir, mesh_shape=ts,
+                    dcn_wire_dtype=dw))
+
+    # ------------------------------------------------------------------
+    # primitives: copy / combine
+    # ------------------------------------------------------------------
+
+    def copy(self, srcbuf: Buffer, dstbuf: Buffer, count: int,
+             from_device: bool = False, to_device: bool = False,
+             run_async: bool = False) -> Optional[Request]:
+        """Every rank's device copy (``ACCL::copy``)."""
+        t0 = _metrics.tick()
+        self._check_count(srcbuf, count, "copy src")
+        self._check_count(dstbuf, count, "copy dst")
+        x = self._input(srcbuf, count, from_device)
+        key, build = self._spec_copy(count, srcbuf.dtype)
+        prog = self._programs.get(key, build)
+        self._store(dstbuf, count, prog(x).to(dstbuf.torch_dtype))
+        _metrics.note_call(operation.copy,
+                           count * constants.dtype_size(srcbuf.dtype),
+                           srcbuf.dtype, key, t0)
+        return self._finish(operation.copy, dstbuf, to_device, run_async,
+                            [])
+
+    def combine(self, count: int, function: reduceFunction, val1: Buffer,
+                val2: Buffer, result: Buffer,
+                val1_from_device: bool = False,
+                val2_from_device: bool = False, to_device: bool = False,
+                run_async: bool = False) -> Optional[Request]:
+        """Every rank's elementwise reduce of two buffers (``ACCL::combine``;
+        the reduce_ops plugin: the combine kernel on the card)."""
+        t0 = _metrics.tick()
+        for b, what in ((val1, "combine op0"), (val2, "combine op1"),
+                        (result, "combine res")):
+            self._check_count(b, count, what)
+        if val1.dtype != val2.dtype:
+            raise ACCLError(errorCode.ARITH_ERROR,
+                            "combine operand dtype mismatch")
+        a = self._input(val1, count, val1_from_device)
+        b = self._input(val2, count, val2_from_device)
+        key, build = self._spec_combine(count, val1.dtype, function)
+        prog = self._programs.get(key, build)
+        self._store(result, count, prog(a, b).to(result.torch_dtype))
+        _metrics.note_call(operation.combine,
+                           count * constants.dtype_size(val1.dtype),
+                           val1.dtype, key, t0)
+        return self._finish(operation.combine, result, to_device, run_async,
+                            [])
 
     # ------------------------------------------------------------------
     # collectives

@@ -24,6 +24,10 @@ class Communicator:
         self.device = torch.device(device)
 
     def hosts_shape(self) -> Optional[Tuple[int, int]]:
-        """(hosts, ranks per host) on a multi-host group; ranks on one card
-        have no host boundary."""
+        """(hosts, ranks per host) on a multi-host group. Ranks on one card
+        have no host boundary, so this is None: AUTO never engages the
+        host-aligned paths, an explicit HIERARCHICAL request on DCN is
+        refused, and an explicit TWOTIER request takes the most-square
+        ``factor2d`` split, as the JAX package does on a single-host mesh
+        (its bench A/B control)."""
         return None

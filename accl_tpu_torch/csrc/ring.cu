@@ -39,6 +39,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include <type_traits>
+
 #define ACCL_MAX_RANKS 64
 #define ACCL_THREADS 256
 
@@ -138,18 +140,28 @@ __device__ __forceinline__ int64_t add(int64_t a, int64_t b) {
 __device__ __forceinline__ float add(float a, float b) { return a + b; }
 __device__ __forceinline__ double add(double a, double b) { return a + b; }
 
-// maximum that propagates NaN from either side, like jnp.maximum
-template <typename A> __device__ __forceinline__ A vmax(A a, A b) {
-  if (a != a) return a;
-  if (b != b) return b;
-  return a > b ? a : b;
+__device__ __forceinline__ bool sign_set(float v) { return (__float_as_uint(v) >> 31) != 0; }
+__device__ __forceinline__ bool sign_set(double v) { return __double_as_longlong(v) < 0; }
+
+// IEEE-754 maximum, like jnp.maximum: NaN propagates from either side
+// (a's when both are NaN) and +0 > -0. True when max(a, b) is b.
+template <typename A> __device__ __forceinline__ bool max_is_second(A a, A b) {
+  if constexpr (std::is_floating_point<A>::value) {
+    if (a != a) return false;
+    if (b != b) return true;
+    if (a == b) return sign_set(a) && !sign_set(b);
+  }
+  return b > a;
 }
 
-// func 0 = SUM, 1 = MAX; a is the received partial, b the local chunk
+// func 0 = SUM, 1 = MAX; a is the received partial, b the local chunk. MAX
+// returns one operand unchanged (a NaN keeps its bits), compared in the
+// fold type, where the widening is exact.
 template <typename T> __device__ __forceinline__ T fold(T a, T b, int func) {
   using A = typename Acc<T>::type;
   const A x = up(a), y = up(b);
-  return down<T>(func == 0 ? add(x, y) : vmax(x, y));
+  if (func == 0) return down<T>(add(x, y));
+  return max_is_second(x, y) ? b : a;
 }
 
 // the wire: identity, or f32 staged as bf16 / f16, or int8 clip(round(x*s))

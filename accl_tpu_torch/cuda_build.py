@@ -24,7 +24,7 @@ _PKG = Path(__file__).resolve().parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_cuda_build"
 #: sources, by library name
-SOURCES = {"ring": SRC_DIR / "ring.cu"}
+SOURCES = {"ring": SRC_DIR / "ring.cu", "plugins": SRC_DIR / "plugins.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
@@ -88,12 +88,15 @@ def load(name: str = "ring") -> ctypes.CDLL:
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(_target(name)))
-        _declare(lib)
+        _DECLARE[name](lib)
+        lib.accl_error_string = getattr(lib, f"accl_{name}_error_string")
+        lib.accl_error_string.argtypes = [ctypes.c_int]
+        lib.accl_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
     return lib
 
 
-def _declare(lib: ctypes.CDLL) -> None:
+def _declare_ring(lib: ctypes.CDLL) -> None:
     c_int, c_ll, c_p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
     u64p = ctypes.POINTER(ctypes.c_uint64)
     lib.accl_ring_capacity.argtypes = [c_int, c_int, c_int, c_int,
@@ -109,14 +112,26 @@ def _declare(lib: ctypes.CDLL) -> None:
                                  c_ll, c_int, c_int, c_int, ctypes.c_double,
                                  c_p]
     lib.accl_ring_ag.restype = c_int
-    lib.accl_ring_error_string.argtypes = [c_int]
-    lib.accl_ring_error_string.restype = ctypes.c_char_p
+
+
+def _declare_plugins(lib: ctypes.CDLL) -> None:
+    c_int, c_ll, c_p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+    lib.accl_plugins_combine.argtypes = [c_int, c_int, c_p, c_p, c_p, c_ll,
+                                         c_p]
+    lib.accl_plugins_combine.restype = c_int
+    lib.accl_plugins_cast.argtypes = [c_int, c_int, c_p, c_p, c_ll, c_p]
+    lib.accl_plugins_cast.restype = c_int
+    lib.accl_plugins_sr.argtypes = [c_p, c_p, c_p, c_int, c_ll, c_ll, c_p]
+    lib.accl_plugins_sr.restype = c_int
+
+
+_DECLARE = {"ring": _declare_ring, "plugins": _declare_plugins}
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     """Raise when a C entry point returned a CUDA error."""
     if rc != 0:
-        msg = lib.accl_ring_error_string(rc)
+        msg = lib.accl_error_string(rc)
         raise RuntimeError(f"{what}: CUDA error {rc} "
                            f"({msg.decode() if msg else '?'})")
 

@@ -18,15 +18,19 @@ ranks of one card form a single axis, and on a single-axis mesh with
 default config they return the ladder's decision. The registers that steer
 them stay inert here.
 
-Dispatch builds XLA-role one-shot programs (:mod:`.primitives`), the flat
-allreduce (:mod:`.flat`) and the ring kernels (``PALLAS``); the RING, TREE,
-HIERARCHICAL, MULTIAXIS and TWOTIER families raise
-``COLLECTIVE_NOT_IMPLEMENTED`` until their slices land.
+Dispatch builds the XLA-role one-shot programs (:mod:`.primitives`), the
+flat allreduce (:mod:`.flat`), the ring kernels (``PALLAS``), the explicit
+ring (:mod:`.ring`), the tree allreduce (:mod:`.tree`), the 2-D
+hierarchical allreduce and, on an explicit request, the two-tier schedules
+(:mod:`.hierarchical`). Every family AUTO can resolve for allreduce,
+reduce-scatter and all-gather builds; only MULTIAXIS, which needs the
+synthesizer and which AUTO never selects on a single-axis mesh, raises
+``COLLECTIVE_NOT_IMPLEMENTED``.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional
 
 from ..arithconfig import ArithConfig
 from ..communicator import Communicator
@@ -34,7 +38,8 @@ from ..config import ACCLConfig, Algorithm, TransportBackend
 from ..constants import (ACCLError, dataType, errorCode, operation,
                          reduceFunction)
 from ..obs import metrics as _metrics
-from . import flat, pallas_ring, primitives
+from . import flat, hierarchical, pallas_ring, primitives, ring, tree
+from .hierarchical import factor2d
 
 _SUPPORTED = {
     operation.bcast: {Algorithm.XLA, Algorithm.FLAT, Algorithm.TREE,
@@ -71,11 +76,7 @@ _SEED_FIELDS = {
 
 #: ROADMAP.md queue-1 item that ports each family still missing
 _ROADMAP_ITEM = {
-    Algorithm.RING: "queue 1, item 4 (parallel/ring.py)",
-    Algorithm.TREE: "queue 1, item 4 (parallel/tree.py)",
-    Algorithm.HIERARCHICAL: "queue 1, item 4 (parallel/hierarchical.py)",
     Algorithm.MULTIAXIS: "queue 1, item 8 (parallel/synth.py)",
-    Algorithm.TWOTIER: "queue 1, item 8 (parallel/synth.py)",
 }
 
 
@@ -91,16 +92,11 @@ def reset_global_fallback_warnings() -> None:
     _warned_global_fallback.clear()
 
 
-def factor2d(world: int) -> Optional[Tuple[int, int]]:
-    """Most-square (rows, cols) factorization, None if world is prime/1."""
-    best = None
-    for rows in range(2, int(world ** 0.5) + 1):
-        if world % rows == 0:
-            best = (rows, world // rows)
-    return best
-
-
 def _hier_shape(comm: Communicator, on_dcn: bool = False):
+    """2-D split for the hierarchical allreduce: the host-aligned one on a
+    multi-host group, else the most-square one; on DCN without a
+    host-aligned shape there is none (the factor2d split would put the
+    bandwidth-heavy phase on DCN links)."""
     hs = comm.hosts_shape()
     if hs is not None:
         return hs
@@ -273,42 +269,105 @@ def _no_kernels(prog: Callable) -> Callable:
     return lambda x, errors=None: prog(x)
 
 
+def _twotier_shape(comm: Communicator, mesh_shape=None) -> tuple:
+    """(slices, per_slice) for a two-tier build: the given shape, else the
+    physical slice boundary (``comm.hosts_shape()``), else, for explicit
+    requests on one host or one card, the most-square factorization; a
+    prime world raises."""
+    if mesh_shape is not None:
+        s = tuple(int(v) for v in mesh_shape)
+        if len(s) != 2 or s[0] * s[1] != comm.world_size:
+            raise ValueError(
+                f"two-tier shape {s} != world {comm.world_size}")
+        return s
+    hs = comm.hosts_shape()
+    if hs is not None:
+        return tuple(hs)
+    shape = factor2d(comm.world_size)
+    if shape is None:
+        raise ValueError(
+            "two-tier collective needs a composite world with a "
+            f"(slices, per_slice) split, got world={comm.world_size}")
+    return tuple(shape)
+
+
 def build_allreduce(comm, func: reduceFunction, dt: dataType, algo: Algorithm,
                     arith: Optional[ArithConfig],
                     segment_bytes: Optional[int] = None,
-                    bidirectional: bool = False) -> Callable:
+                    bidirectional: bool = False,
+                    on_dcn: bool = False,
+                    mesh_shape=None,
+                    dcn_wire_dtype=None) -> Callable:
+    if algo == Algorithm.TWOTIER:
+        s2 = _twotier_shape(comm, mesh_shape)
+        return _no_kernels(hierarchical.build_twotier_allreduce(
+            comm, s2[0], s2[1], func, dt, arith,
+            dcn_wire_dtype=dcn_wire_dtype))
     if algo == Algorithm.PALLAS:
         return pallas_ring.build_pallas_ring_allreduce(
             comm, func, dt, segment_bytes, arith=arith,
             bidirectional=bidirectional)
     if algo == Algorithm.FLAT:
         return _no_kernels(flat.build_flat_allreduce(comm, func, dt, arith))
-    if algo == Algorithm.XLA:
-        return _no_kernels(primitives.build_allreduce(comm, func, dt, arith))
-    raise _not_ported(operation.allreduce, algo)
+    if algo == Algorithm.RING:
+        return _no_kernels(ring.build_ring_allreduce(comm, func, dt, arith))
+    if algo == Algorithm.TREE:
+        return _no_kernels(tree.build_tree_allreduce(comm, func, dt, arith))
+    if algo == Algorithm.HIERARCHICAL:
+        # an explicit request on DCN without a host-aligned shape fails
+        # loudly rather than take the factor2d split
+        rc = _hier_shape(comm, on_dcn)
+        if rc is None:
+            raise ValueError(
+                "hierarchical allreduce needs a composite world"
+                + (" with a host-aligned 2-D shape on DCN" if on_dcn else "")
+                + f", got world={comm.world_size}")
+        return _no_kernels(hierarchical.build_hier_allreduce(
+            comm, rc[0], rc[1], func, dt, arith))
+    if algo == Algorithm.MULTIAXIS:
+        raise _not_ported(operation.allreduce, algo)
+    return _no_kernels(primitives.build_allreduce(comm, func, dt, arith))
 
 
 def build_allgather(comm, algo: Algorithm, arith: Optional[ArithConfig],
                     dt: dataType, segment_bytes: Optional[int] = None,
-                    bidirectional: bool = False) -> Callable:
+                    bidirectional: bool = False,
+                    mesh_shape=None,
+                    dcn_wire_dtype=None) -> Callable:
+    if algo == Algorithm.TWOTIER:
+        s2 = _twotier_shape(comm, mesh_shape)
+        return _no_kernels(hierarchical.build_twotier_allgather(
+            comm, s2[0], s2[1], arith, dcn_wire_dtype=dcn_wire_dtype))
     if algo == Algorithm.PALLAS:
         return pallas_ring.build_pallas_ring_allgather(
             comm, dt, segment_bytes, arith=arith,
             bidirectional=bidirectional)
-    if algo == Algorithm.XLA:
-        return _no_kernels(primitives.build_allgather(comm, arith))
-    raise _not_ported(operation.allgather, algo)
+    if algo == Algorithm.RING:
+        return _no_kernels(ring.build_ring_allgather(comm, arith))
+    if algo == Algorithm.MULTIAXIS:
+        raise _not_ported(operation.allgather, algo)
+    return _no_kernels(primitives.build_allgather(comm, arith))
 
 
 def build_reduce_scatter(comm, func: reduceFunction, dt: dataType,
                          algo: Algorithm, arith: Optional[ArithConfig],
                          segment_bytes: Optional[int] = None,
-                         bidirectional: bool = False) -> Callable:
+                         bidirectional: bool = False,
+                         mesh_shape=None,
+                         dcn_wire_dtype=None) -> Callable:
+    if algo == Algorithm.TWOTIER:
+        s2 = _twotier_shape(comm, mesh_shape)
+        return _no_kernels(hierarchical.build_twotier_reduce_scatter(
+            comm, s2[0], s2[1], func, dt, arith,
+            dcn_wire_dtype=dcn_wire_dtype))
     if algo == Algorithm.PALLAS:
         return pallas_ring.build_pallas_ring_reduce_scatter(
             comm, func, dt, segment_bytes, arith=arith,
             bidirectional=bidirectional)
-    if algo == Algorithm.XLA:
-        return _no_kernels(primitives.build_reduce_scatter(comm, func, dt,
-                                                           arith))
-    raise _not_ported(operation.reduce_scatter, algo)
+    if algo == Algorithm.RING:
+        return _no_kernels(ring.build_ring_reduce_scatter(comm, func, dt,
+                                                          arith))
+    if algo == Algorithm.MULTIAXIS:
+        raise _not_ported(operation.reduce_scatter, algo)
+    return _no_kernels(primitives.build_reduce_scatter(comm, func, dt,
+                                                       arith))

@@ -12,11 +12,10 @@ from typing import Callable, Optional
 
 import torch
 
-from .. import ops
 from ..arithconfig import ArithConfig
 from ..communicator import Communicator
 from ..constants import dataType, reduceFunction
-from .primitives import _unwire, _wire
+from .primitives import _fold_in, _unwire, _wire
 
 
 def build_flat_allreduce(comm: Communicator, func: reduceFunction,
@@ -27,14 +26,11 @@ def build_flat_allreduce(comm: Communicator, func: reduceFunction,
     leaves the fold order unchanged, so ranks on one device need none."""
     world = comm.world_size
 
-    def edge(v):
-        return _unwire(_wire(v, arith), arith, v.dtype)
-
     def prog(x):
         acc = x[0]
         for src in range(1, world):
-            acc = ops.combine(acc, edge(x[src]), func, dt)
-        peer = edge(acc)
+            acc = _fold_in(acc, _wire(x[src], arith), func, dt, arith)
+        peer = _unwire(_wire(acc, arith), arith, acc.dtype)
         return torch.stack([acc] + [peer] * (world - 1))
 
     return prog

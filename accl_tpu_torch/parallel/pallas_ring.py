@@ -48,7 +48,7 @@ import torch
 from .. import constants, cuda_build
 from ..communicator import Communicator
 from ..constants import ACCLError, dataType, errorCode, reduceFunction
-from ..ops.registry import dequantize, quantize
+from ..ops.registry import dequantize, maximum, quantize
 
 _LANES = 128
 
@@ -85,7 +85,7 @@ def _staged_bytes(P: int, block_elems: int, dtype) -> int:
 
 
 def _combine(a, b, func: reduceFunction):
-    return a + b if func == reduceFunction.SUM else torch.maximum(a, b)
+    return a + b if func == reduceFunction.SUM else maximum(a, b)
 
 
 # ---------------------------------------------------------------------------

@@ -2,6 +2,7 @@
 
 These take the role XLA's native collectives play in the JAX package: the
 counted baseline that AUTO selects below the ring kernels' thresholds.
+The local primitives ``copy`` and ``combine`` live here too, as there.
 Each program maps the ``(world, ...)`` tensor of all ranks to the result
 of every rank with plain torch operations, folding in ascending rank
 order (:func:`..ops.registry.reduce_axis0`). Wire compression
@@ -13,7 +14,8 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
-from .. import ops
+from .. import constants, ops
+from ..ops import reduce_ops
 from ..arithconfig import ArithConfig
 from ..communicator import Communicator
 from ..constants import dataType, reduceFunction
@@ -35,6 +37,35 @@ def _unwire(x, arith: Optional[ArithConfig], out_dtype):
                           arith.quant_scale).to(out_dtype)
 
 
+def _quantized(arith: Optional[ArithConfig]) -> bool:
+    """The int8 wire with a scale (dequantized by a multiply)."""
+    return (arith is not None and arith.is_compressing
+            and arith.compressed == dataType.int8
+            and arith.quant_scale is not None)
+
+
+def _fold_in(acc, moved, func: reduceFunction, dt: dataType,
+             arith: Optional[ArithConfig]):
+    """``combine(acc, unwire(moved))`` for a value ``moved`` that arrived in
+    the wire dtype. A quantized SUM folds as XLA compiles it, one rounding
+    (:func:`..ops.registry.add_dequantized`)."""
+    if func == reduceFunction.SUM and _quantized(arith):
+        return ops.registry.add_dequantized(acc, moved, arith.quant_scale)
+    return ops.combine(acc, _unwire(moved, arith, acc.dtype), func, dt)
+
+
+def _fold_wire(stack, func: reduceFunction, dt: dataType,
+               arith: Optional[ArithConfig], out_dtype):
+    """``reduce_axis0`` of a (world, ...) stack that arrived in the wire
+    dtype, decompressed first (the decompress-before-arith fold)."""
+    if func == reduceFunction.SUM and _quantized(arith):
+        return ops.registry.reduce_dequantized(stack, arith.quant_scale,
+                                               out_dtype)
+    g = ops.decompress(stack, arith.compressed, arith.uncompressed,
+                       arith.quant_scale)
+    return ops.reduce_axis0(g, func, dt)
+
+
 def _everyone(row, world: int):
     """Every rank holds ``row``: (n,) -> (world, n)."""
     return row.unsqueeze(0).expand(world, *row.shape).contiguous()
@@ -48,10 +79,9 @@ def build_allreduce(comm: Communicator, func: reduceFunction, dt: dataType,
     def prog(send):
         x = _wire(send, arith)
         if arith is not None and arith.decompress_before_arith:
-            g = ops.decompress(x, arith.compressed, arith.uncompressed,
-                               arith.quant_scale)
-            return _everyone(ops.reduce_axis0(g, func, dt).to(send.dtype),
-                             world)
+            red = _fold_wire(x, func, dt, arith,
+                             constants.to_torch_dtype(arith.uncompressed))
+            return _everyone(red.to(send.dtype), world)
         red = ops.reduce_axis0(x, func, dt)
         return _everyone(_unwire(red, arith, send.dtype), world)
 
@@ -73,8 +103,9 @@ def build_reduce_scatter(comm: Communicator, func: reduceFunction,
             return _unwire(ops.reduce_axis0(chunks, func, dt), arith,
                            send.dtype)
         if arith is not None and arith.is_compressing:
-            chunks = ops.decompress(chunks, arith.compressed,
-                                    arith.uncompressed, arith.quant_scale)
+            return _fold_wire(chunks, func, dt, arith,
+                              constants.to_torch_dtype(
+                                  arith.uncompressed)).to(send.dtype)
         return ops.reduce_axis0(chunks, func, dt).to(send.dtype)
 
     return prog
@@ -90,3 +121,28 @@ def build_allgather(comm: Communicator,
         return _everyone(g.reshape(-1), world)
 
     return prog
+
+
+# --------------------------------------------------------------------------
+# local primitives (no exchange)
+# --------------------------------------------------------------------------
+
+def build_copy(comm: Communicator) -> Callable:
+    """``ACCL::copy``: every rank's local device copy. The JAX program's
+    ``x + 0`` is a copy (XLA folds the add away; -0.0 stays -0.0)."""
+    return lambda x: x.clone()
+
+
+def build_combine(comm: Communicator, func: reduceFunction, dt: dataType,
+                  use_pallas: bool = False, donate: bool = False) -> Callable:
+    """``ACCL::combine``: every rank's elementwise reduce of two operands,
+    ``prog(a, b)``. ``use_pallas`` routes the ``PALLAS_DTYPES`` through the
+    plugin lane (:func:`..ops.reduce_ops.pallas_combine`, the CUDA combine
+    kernel on the card), as the JAX package routes them through its Pallas
+    lane; other dtypes and ``use_pallas=False`` take the registry's
+    combine. ``donate`` writes the result into operand ``a``."""
+    if use_pallas and dt in reduce_ops.PALLAS_DTYPES:
+        return lambda a, b: reduce_ops.pallas_combine(
+            a.contiguous(), b.contiguous(), func, donate=donate)
+
+    return lambda a, b: ops.combine(a, b, func, dt)

@@ -4,18 +4,33 @@
 Run from the repository root: ``python3 chip_smoke.py``. Phases, in order;
 any failure exits non-zero and nothing is caught and skipped:
 
-1. build the ring kernels from ``accl_tpu_torch/csrc`` with ``nvcc`` and
-   print the build time, the card and its power limit;
-2. hold every kernel against its plain PyTorch version on the card with
-   ``torch.equal`` (P in {2, 8}, a ragged length, SUM and MAX, f32 / i32 /
-   bf16, a bf16 and an int8 wire, both ring directions), then time each
-   kernel, its plain version and a one-call PyTorch yardstick at the
-   shapes of the main path;
-3. the main path: ``ACCL(world=8)`` runs AUTO all-reduce, f32 SUM, from 4 B
-   to 1 GiB per rank in powers of 4 with the payload generated and kept on
-   the card; every size is checked against a float64 fold, and the launch
-   counters must show the VMEM-range ring kernels for 1-4 MiB and the
-   segmented ones above;
+1. build the kernels from ``accl_tpu_torch/csrc`` (``ring.cu`` and
+   ``plugins.cu``, one ``nvcc`` each, in parallel) and print the build
+   time, the card and its power limit;
+2. hold every kernel against its plain PyTorch version on the card, bit
+   for bit (``torch.equal``, or the raw bits where NaN can occur): the four
+   ring kernels (P in {2, 8}, a ragged length, SUM and MAX, f32 / i32 /
+   bf16, a bf16 and an int8 wire, both ring directions, MAX on +-0 / NaN)
+   and the three plugin kernels (combine in f32 / bf16 / f16 / i32, SUM and
+   MAX, with and without donate; the four casts; stochastic rounding with
+   three seeds and per-row seeds; NaN, +-0, inf, subnormal and overflow
+   cases), then time each kernel, its plain version and a one-call PyTorch
+   yardstick at the shapes of the main path;
+3. the main path, each part with every launch counter set to 0 just
+   before it and read just after:
+   a. ``ACCL(world=8)`` runs AUTO all-reduce, f32 SUM, from 4 B to 1 GiB
+      per rank in powers of 4 with the payload generated and kept on the
+      card; every size is checked against a float64 fold, and the launch
+      counters must show the VMEM-range ring kernels for 1-4 MiB and the
+      segmented ones above;
+   b. the families and primitives of slice 2 at world 8: ``combine`` SUM
+      and MAX and ``copy`` at 256 MiB per rank, AUTO reduce-scatter at 4
+      and 6 MiB (the RING window), explicit RING / TREE / HIERARCHICAL
+      all-reduce at 64 MiB per rank, and explicit TWOTIER all-reduce,
+      reduce-scatter and all-gather at 4, 64 and 256 MiB per rank with the
+      DCN wire "off", "bf16" and "bf16_sr"; every result is checked
+      against a float64 fold, and the counters must show the combine,
+      cast and stochastic-round kernels;
 4. print the ``kernels`` line, the card line and, last, the device line.
 
 Exits 2 without printing a result when no CUDA device is visible.
@@ -27,12 +42,14 @@ import os
 import statistics
 import subprocess
 import sys
-import time
 
 GIB = 1 << 30
 MIB = 1 << 20
 #: H100 SXM device memory rate (bytes/s), NVIDIA's data sheet
 HBM_BYTES_PER_S = 3.35e12
+#: H100 SXM 32-bit integer rate (ops/s): 64 INT32 lanes per SM, half of
+#: the 67 TFLOP/s float32 rate of NVIDIA's data sheet
+INT32_OPS_PER_S = 33.5e12
 
 
 def log(msg: str) -> None:
@@ -131,8 +148,114 @@ def check_kernels(gen) -> None:
                     pc.plain_chunked_reduce_scatter(x, F.SUM, wire, True)):
                 fail(f"chunked_rs_kernel != plain (P={P} wire={wire})")
             n += 2
+    # MAX on +-0 / NaN: IEEE maximum (+0 > -0, NaN propagates), by bits
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.where(torch.rand((8, 8, L), generator=gen, device="cuda")
+                        < 0.5, 0.0, -0.0)
+        x[0, 3, ::97] = float("nan")
+        x = x.to(dt)
+        if not same_bits(pr.ring_reduce_scatter(x, F.MAX),
+                         pr.plain_ring_reduce_scatter(x, F.MAX)):
+            fail(f"ring_rs_kernel != plain on +-0/NaN MAX ({dt})")
+        xc = x.view(8, 8, 1, L).expand(8, 8, 2, L).contiguous()
+        for bidir in (False, True):
+            if not same_bits(pc.chunked_reduce_scatter(xc, F.MAX, None,
+                                                       bidir),
+                             pc.plain_chunked_reduce_scatter(xc, F.MAX, None,
+                                                             bidir)):
+                fail(f"chunked_rs_kernel != plain on +-0/NaN MAX ({dt} "
+                     f"bidir={bidir})")
+        n += 3
     torch.cuda.synchronize()
-    log(f"phase 2: {n} kernel-vs-plain cases bit-equal (torch.equal)")
+    log(f"phase 2: {n} ring kernel-vs-plain cases bit-equal")
+
+
+def bits(t):
+    import torch
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def same_bits(a, b) -> bool:
+    import torch
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        torch.equal(bits(a), bits(b))
+
+
+def specials(n: int, gen):
+    """Random f32 with NaN, -NaN, +-0, +-inf, subnormals and values past
+    the bf16 and f16 ranges."""
+    import torch
+    x = torch.randn(n, generator=gen, device="cuda")
+    sp = torch.tensor([float("nan"), -float("nan"), 0.0, -0.0,
+                       float("inf"), -float("inf"), 1e-40, -1e-40, 3.4e38,
+                       -3.4e38, 65520.0, 65519.0, 6e-8, 1e-45],
+                      device="cuda")
+    x[::7][:sp.numel()] = sp
+    return x
+
+
+def check_plugin_kernels(gen) -> None:
+    """combine / cast / stochastic round against their plain versions, by
+    bits, at ragged (1000, 4099) and aligned (4096) lengths and on a
+    16-byte-misaligned view."""
+    import torch
+    from accl_tpu_torch.constants import reduceFunction as F
+    from accl_tpu_torch.ops import compression as cp
+    from accl_tpu_torch.ops import reduce_ops as ro
+
+    n_cases = 0
+    for n in (1000, 4096, 4099):
+        for dt in (torch.float32, torch.bfloat16, torch.float16,
+                   torch.int32):
+            if dt == torch.int32:
+                a, b = torch.randint(-2 ** 31, 2 ** 31 - 1, (2, n),
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int32)
+            else:
+                a = specials(n, gen).to(dt)
+                b = torch.roll(specials(n, gen), 1).to(dt)
+                b[::5] = -a[::5]
+            for func in (F.SUM, F.MAX):
+                want = ro.plain_combine(a, b, func)
+                if not same_bits(ro.pallas_combine(a, b, func), want):
+                    fail(f"combine_kernel != plain (n={n} {dt} "
+                         f"{func.name})")
+                acc = a.clone()
+                out = ro.pallas_combine(acc, b, func, donate=True)
+                if out is not acc or not same_bits(out, want):
+                    fail(f"combine_kernel donate != plain (n={n} {dt} "
+                         f"{func.name})")
+                if not same_bits(ro.pallas_combine(a[1:], b[1:], func),
+                                 ro.plain_combine(a[1:], b[1:], func)):
+                    fail(f"combine_kernel misaligned != plain (n={n} {dt} "
+                         f"{func.name})")
+                n_cases += 3
+        x = specials(n, gen)
+        for dst in (torch.bfloat16, torch.float16):
+            y = cp.pallas_cast(x, dst)
+            if not same_bits(y, cp.plain_cast(x, dst)):
+                fail(f"cast_kernel float32 -> {dst} != plain (n={n})")
+            if not same_bits(cp.pallas_cast(y, torch.float32),
+                             cp.plain_cast(y, torch.float32)):
+                fail(f"cast_kernel {dst} -> float32 != plain (n={n})")
+            n_cases += 2
+        nan_bits = bits(cp.pallas_cast(x, torch.bfloat16))[:8:7].tolist()
+        if nan_bits != [0x7FC0, -64]:
+            fail(f"cast_kernel NaN bits {nan_bits}, want 0x7FC0, 0xFFC0")
+        for seed in (0, 7, -123456789):
+            if not same_bits(cp.pallas_compress_stochastic(x, seed=seed),
+                             cp.plain_compress_stochastic(x, seed)):
+                fail(f"sr_kernel != plain (n={n} seed={seed})")
+            n_cases += 1
+        rows = specials(8 * n, gen).view(8, n)
+        seeds = torch.arange(-3, 5, dtype=torch.int32, device="cuda") * 977
+        if not same_bits(cp.pallas_compress_stochastic(rows, seed=seeds),
+                         cp.plain_compress_stochastic(rows, seeds)):
+            fail(f"sr_kernel per-row seeds != plain (n={n})")
+        n_cases += 1
+    torch.cuda.synchronize()
+    log(f"phase 2: {n_cases} plugin kernel-vs-plain cases bit-equal")
 
 
 def measure_kernels(gen, big_ok: bool) -> dict:
@@ -221,26 +344,112 @@ def measure_kernels(gen, big_ok: bool) -> dict:
     return res
 
 
+def measure_plugin_kernels(gen) -> dict:
+    """The plugin kernels at their main-path shape, the (8, 64 Mi) f32
+    payload of a 256 MiB-per-rank call at world 8: ``ACCL.combine``'s
+    operands, the two-tier all-gather's DCN leg (cast and stochastic
+    round, one seed per rank). Bounds: bytes over 3.35 TB/s (combine
+    3 n t, cast n (t_src + t_dst), SR 6 n); SR's hash also counts its
+    integer operations (``SR_INT_OPS`` per element) over the int32 rate."""
+    import torch
+    from accl_tpu_torch.constants import reduceFunction as F
+    from accl_tpu_torch.ops import compression as cp
+    from accl_tpu_torch.ops import reduce_ops as ro
+
+    P, n = 8, 256 * MIB // 4
+    res = {}
+
+    def record(name, got, want, x, fn_kernel, fn_plain, fn_lib, nbytes,
+               ops, iters):
+        if not same_bits(got, want):
+            fail(f"{name} != plain at the main-path shape {tuple(x.shape)}")
+        err = (got.double() - want.double()).abs().nan_to_num(0.0) \
+            .max().item()
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops = ops / INT32_OPS_PER_S * 1e3
+        res[name] = {
+            "shape": list(x.shape), "max_abs_err": err,
+            "ms": time_ms(fn_kernel, iters),
+            "plain_ms": time_ms(fn_plain, max(1, iters // 3)),
+            "library_ms": (time_ms(fn_lib, iters) if fn_lib is not None
+                           else None),
+            "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+        }
+        r = res[name]
+        log(f"  {name} {tuple(x.shape)}: kernel {r['ms']!r} ms, plain "
+            f"{r['plain_ms']!r} ms, library {r['library_ms']!r} ms, bound "
+            f"{r['bound_ms']!r} ms ({r['bound_by']}), max_abs_err {err!r}")
+
+    a = torch.randn((P, n), generator=gen, device="cuda")
+    b = torch.randn((P, n), generator=gen, device="cuda")
+    got = ro.pallas_combine(a, b, F.SUM)
+    record("combine_kernel", got, ro.plain_combine(a, b, F.SUM), a,
+           lambda: ro.pallas_combine(a, b, F.SUM),
+           lambda: ro.plain_combine(a, b, F.SUM),
+           lambda: torch.add(a, b), 3 * a.numel() * 4, a.numel(), 10)
+    mx = ro.pallas_combine(a, b, F.MAX)
+    if not same_bits(mx, ro.plain_combine(a, b, F.MAX)):
+        fail("combine_kernel MAX != plain at the main-path shape")
+    k_ms = time_ms(lambda: ro.pallas_combine(a, b, F.MAX), 10)
+    lib_ms = time_ms(lambda: torch.maximum(a, b), 10)
+    log(f"    MAX: kernel {k_ms!r} ms, torch.maximum {lib_ms!r} ms")
+    del b, got, mx
+    torch.cuda.empty_cache()
+
+    x = a
+    got = cp.pallas_cast(x, torch.bfloat16)
+    record("cast_kernel", got, cp.plain_cast(x, torch.bfloat16), x,
+           lambda: cp.pallas_cast(x, torch.bfloat16),
+           lambda: cp.plain_cast(x, torch.bfloat16),
+           lambda: x.to(torch.bfloat16), x.numel() * 6, 0, 10)
+    del got
+    torch.cuda.empty_cache()
+
+    seeds = torch.arange(P, dtype=torch.int32, device="cuda") * 7919 - 5
+    got = cp.pallas_compress_stochastic(x, seed=seeds)
+    want = cp.plain_compress_stochastic(x, seeds)
+    record("sr_kernel", got, want, x,
+           lambda: cp.pallas_compress_stochastic(x, seed=seeds),
+           lambda: cp.plain_compress_stochastic(x, seeds), None,
+           x.numel() * 6, x.numel() * SR_INT_OPS, 10)
+    del got, want, x, a
+    torch.cuda.empty_cache()
+    return res
+
+
+#: 32-bit integer operations of ``sr_kernel`` per element: the index
+#: multiply, xor, the hash's three xor-shifts and two multiplies, the
+#: NaN test (and, compare), the add, mask and shift of the rounding
+SR_INT_OPS = 16
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
-def counts():
+def wrappers() -> dict:
+    """Every kernel's launch-counting wrapper, by kernel name."""
+    from accl_tpu_torch.ops import compression as cp
+    from accl_tpu_torch.ops import reduce_ops as ro
     from accl_tpu_torch.parallel import pallas_chunked as pc
     from accl_tpu_torch.parallel import pallas_ring as pr
-    return {"ring_rs_kernel": pr.ring_reduce_scatter.launches,
-            "ring_ag_kernel": pr.ring_allgather.launches,
-            "chunked_rs_kernel": pc.chunked_reduce_scatter.launches,
-            "chunked_ag_kernel": pc.chunked_allgather.launches}
+    return {"ring_rs_kernel": pr.ring_reduce_scatter,
+            "ring_ag_kernel": pr.ring_allgather,
+            "chunked_rs_kernel": pc.chunked_reduce_scatter,
+            "chunked_ag_kernel": pc.chunked_allgather,
+            "combine_kernel": ro.pallas_combine,
+            "cast_kernel": cp.pallas_cast,
+            "sr_kernel": cp.pallas_compress_stochastic}
 
 
-def reset_counts():
-    from accl_tpu_torch.parallel import pallas_chunked as pc
-    from accl_tpu_torch.parallel import pallas_ring as pr
-    pr.ring_reduce_scatter.launches = 0
-    pr.ring_allgather.launches = 0
-    pc.chunked_reduce_scatter.launches = 0
-    pc.chunked_allgather.launches = 0
+def counts() -> dict:
+    return {k: w.launches for k, w in wrappers().items()}
+
+
+def reset_counts() -> None:
+    for w in wrappers().values():
+        w.launches = 0
 
 
 def check_result(x, y, P: int) -> float:
@@ -276,7 +485,6 @@ def main_path(gen) -> dict:
     acc = ACCL(world=P)
     sizes = [4 * 4 ** i for i in range(15)]            # 4 B .. 1 GiB
     reset_counts()
-    before = counts()
     for nbytes in sizes:
         count = nbytes // 4
         free, _ = torch.cuda.mem_get_info()
@@ -292,16 +500,11 @@ def main_path(gen) -> dict:
         send.device_store(torch.randn((P, count), generator=gen,
                                       device="cuda"))
         c0 = counts()
-        iters = 20 if nbytes <= 16 * MIB else (8 if nbytes <= 64 * MIB
-                                               else 4)
-        times = []
-        for i in range(iters + 1):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            acc.allreduce(send, recv, count, reduceFunction.SUM,
-                          from_device=True, to_device=True)
-            if i:
-                times.append(time.perf_counter() - t0)
+        iters = 10 if nbytes <= 16 * MIB else (5 if nbytes <= 64 * MIB
+                                               else 3)
+        p50 = p50_call(lambda: acc.allreduce(
+            send, recv, count, reduceFunction.SUM, from_device=True,
+            to_device=True), iters)
         c1 = counts()
         fired = {k: c1[k] - c0[k] for k in c1}
         algo = algorithms.select(operation.allreduce, nbytes, acc.comms[0],
@@ -320,7 +523,6 @@ def main_path(gen) -> dict:
         if not ok:
             fail(f"{nbytes} B: unexpected kernel launches {fired} "
                  f"(algorithm {algo})")
-        p50 = statistics.median(times)
         lib = "n/a"
         if count % P == 0:
             xv = send.data
@@ -332,8 +534,185 @@ def main_path(gen) -> dict:
         log(f"  library yardstick x.view(P, P, -1).sum(0): {lib}")
         del send, recv
         torch.cuda.empty_cache()
-    after = counts()
-    return {k: after[k] - before[k] for k in after}
+    return counts()
+
+
+def p50_call(fn, iters: int) -> float:
+    """Median host time (s) of ``fn()`` to its end on the card, after one
+    warm-up call."""
+    import torch
+    from accl_tpu_torch.utils.timing import Timer
+    timer, times = Timer(), []
+    for i in range(iters + 1):
+        torch.cuda.synchronize()
+        timer.start()
+        fn()
+        torch.cuda.synchronize()
+        timer.end()
+        if i:
+            times.append(timer.elapsed() / 1e6)
+    return statistics.median(times)
+
+
+def check_fold(y, xs, wire_ulps: float, what: str) -> float:
+    """``y`` (rows, n) against the float64 fold of ``xs`` (k, rows, n) over
+    its first axis: |y - sum| <= (k-1) 2^-24 sum|x| + wire_ulps sum|x|
+    (the f32 fold bound, plus one rounding of each slice's partial on a
+    bf16 DCN wire: 2^-8 relative to nearest, 2^-7 stochastic). Returns
+    the largest |y - sum|."""
+    import torch
+    k = xs.shape[0]
+    worst = 0.0
+    step = 1 << 22
+    for lo in range(0, xs.shape[-1], step):
+        xd = xs[..., lo:lo + step].double()
+        ref = xd.sum(0)
+        mag = xd.abs().sum(0)
+        bound = ((k - 1) * 2.0 ** -24 + wire_ulps) * mag
+        err = (y[..., lo:lo + step].double() - ref).abs()
+        if bool((err > bound).any()):
+            fail(f"{what}: result outside its bound at columns {lo}..")
+        worst = max(worst, err.max().item())
+        del xd, ref, mag, bound, err
+    return worst
+
+
+def slice2_paths(gen) -> dict:
+    """Phase 3b: combine, copy, the RING window of reduce-scatter, the
+    explicit families and the two-tier schedules at world 8, f32, payloads
+    generated and kept on the card. Returns the launch counts of this
+    part."""
+    import torch
+    from accl_tpu_torch import ACCL, Algorithm, dataType, operation, \
+        reduceFunction as F
+    from accl_tpu_torch.parallel import algorithms
+
+    P = 8
+    f32 = dataType.float32
+    acc = ACCL(world=P)
+    reset_counts()
+
+    def buf(count, x=None):
+        b = acc.create_buffer(count, f32)
+        if x is not None:
+            b.device_store(x)
+        return b
+
+    def rand(count):
+        return torch.randn((P, count), generator=gen, device="cuda")
+
+    def report(what, p50, fired_before, err, algo=None):
+        c = counts()
+        fired = {k: c[k] - fired_before[k] for k in c if c[k] -
+                 fired_before[k]}
+        log(f"{what}: p50 {p50 * 1e6!r} us"
+            + (f", algorithm {algo}" if algo else "")
+            + f", launches {json.dumps(fired)}, max|err| {err!r}")
+        return fired
+
+    # combine and copy at 256 MiB per rank
+    count = 256 * MIB // 4
+    xa, xb = rand(count), rand(count)
+    a, b, r = buf(count, xa), buf(count, xb), buf(count)
+    for func in (F.SUM, F.MAX):
+        c0 = counts()
+        p50 = p50_call(lambda: acc.combine(
+            count, func, a, b, r, val1_from_device=True,
+            val2_from_device=True, to_device=True), 3)
+        want = xa + xb if func == F.SUM else torch.where(xb > xa, xb, xa)
+        if not torch.equal(r.data, want):
+            fail(f"combine {func.name} != the f32 {func.name}")
+        if report(f"combine {func.name} 256 MiB/rank", p50, c0,
+                  0.0).get("combine_kernel", 0) == 0:
+            fail("combine did not launch combine_kernel")
+        del want
+    c0 = counts()
+    p50 = p50_call(lambda: acc.copy(a, r, count, from_device=True,
+                                    to_device=True), 3)
+    if not torch.equal(r.data, xa):
+        fail("copy != its source")
+    report("copy 256 MiB/rank", p50, c0, 0.0)
+    del a, b, r, xa, xb
+    torch.cuda.empty_cache()
+
+    def run(op, nbytes, algo, iters):
+        """One call shape: its p50, the fired launches and max|err|."""
+        world_in = op == "reduce_scatter"
+        count = nbytes // 4 // (P if world_in else 1)
+        n_in = count * P if world_in else count
+        n_out = count * P if op == "allgather" else count
+        x = rand(n_in)
+        s, r = buf(n_in, x), buf(n_out)
+        kw = {} if op == "allgather" else {"function": F.SUM}
+        if algo is not None:
+            kw["algorithm"] = algo
+        c0 = counts()
+        p50 = p50_call(lambda: getattr(acc, op)(
+            s, r, count, from_device=True, to_device=True, **kw), iters)
+        wire = acc.config.dcn_wire_dtype if algo == Algorithm.TWOTIER \
+            else "off"
+        ulps = {"off": 0.0, "bf16": 2.0 ** -8, "bf16_sr": 2.0 ** -7}[wire]
+        if op == "allreduce":
+            err = check_fold(r.data, x.unsqueeze(1), ulps, f"{op} {algo}")
+        elif op == "reduce_scatter":
+            err = check_fold(r.data, x.view(P, P, count), ulps,
+                             f"{op} {algo}")
+        else:
+            err = check_gather(r.data, x, wire)
+        resolved = algorithms.select(
+            operation[op], nbytes, acc.comms[0], acc.config, algo,
+            count=n_in).value
+        fired = report(f"{op} {nbytes} B/rank {wire}", p50, c0, err,
+                       resolved)
+        del s, r, x
+        torch.cuda.empty_cache()
+        return resolved, fired
+
+    # AUTO reduce-scatter in the RING window (4-8 MiB of input per rank)
+    for nbytes in (4 * MIB, 6 * MIB):
+        resolved, _ = run("reduce_scatter", nbytes, None, 5)
+        if resolved != "ring":
+            fail(f"AUTO reduce_scatter at {nbytes} B resolved {resolved}")
+    for algo in (Algorithm.RING, Algorithm.TREE, Algorithm.HIERARCHICAL):
+        run("allreduce", 64 * MIB, algo, 3)
+    for wire in ("off", "bf16", "bf16_sr"):
+        acc.config = acc.config.replace(dcn_wire_dtype=wire)
+        for op in ("allreduce", "reduce_scatter", "allgather"):
+            for nbytes in (4 * MIB, 64 * MIB, 256 * MIB):
+                _, fired = run(op, nbytes, Algorithm.TWOTIER,
+                               5 if nbytes <= 64 * MIB else 3)
+                lane = {"bf16": "cast_kernel", "bf16_sr": "sr_kernel"}
+                if wire in lane and fired.get(lane[wire], 0) == 0:
+                    fail(f"TWOTIER {op} {wire} did not launch "
+                         f"{lane[wire]}")
+    return counts()
+
+
+def check_gather(y, x, wire: str) -> float:
+    """An all-gather's every rank holds every rank's block in rank order:
+    exactly at "off", x's nearest bf16 at "bf16", one of x's two bf16
+    neighbours at "bf16_sr". Returns max|y - x|."""
+    import torch
+    P = x.shape[0]
+    flat = x.reshape(1, -1)
+    if wire == "bf16":
+        near = flat.to(torch.bfloat16).float()
+    elif wire == "bf16_sr":
+        lo = (flat.view(torch.int32) & -65536).view(torch.float32)
+        hi = (lo.view(torch.int32) + 65536).view(torch.float32)
+    worst = 0.0
+    for rank in range(P):
+        got = y[rank:rank + 1]
+        if wire == "off":
+            ok = torch.equal(got, flat)
+        elif wire == "bf16":
+            ok = torch.equal(got, near)
+        else:
+            ok = bool(((got == lo) | (got == hi)).all())
+        if not ok:
+            fail(f"allgather ({wire}) rank {rank} holds wrong blocks")
+        worst = max(worst, (got - flat).abs().max().item())
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -343,7 +722,14 @@ REPLACES = {
     "ring_ag_kernel": "accl_tpu/parallel/pallas_ring.py:194",
     "chunked_rs_kernel": "accl_tpu/parallel/pallas_chunked.py:82",
     "chunked_ag_kernel": "accl_tpu/parallel/pallas_chunked.py:275",
+    "combine_kernel": "accl_tpu/ops/reduce_ops.py:62",
+    "cast_kernel": "accl_tpu/ops/compression.py:43",
+    "sr_kernel": "accl_tpu/ops/compression.py:119",
 }
+SOURCE = {"ring_rs_kernel": "ring.cu", "ring_ag_kernel": "ring.cu",
+          "chunked_rs_kernel": "ring.cu", "chunked_ag_kernel": "ring.cu",
+          "combine_kernel": "plugins.cu", "cast_kernel": "plugins.cu",
+          "sr_kernel": "plugins.cu"}
 
 
 def main() -> int:
@@ -356,7 +742,8 @@ def main() -> int:
 
     # phase 1: build
     secs = cuda_build.build()
-    cuda_build.load()
+    for lib in cuda_build.SOURCES:
+        cuda_build.load(lib)
     log(f"phase 1: built {sorted(cuda_build.SOURCES)} in {secs:.1f} s")
     for name, out in cuda_build.build_log.items():
         for line in out.splitlines():
@@ -369,25 +756,34 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
     check_kernels(gen)
+    check_plugin_kernels(gen)
     total = torch.cuda.get_device_properties(0).total_memory
     meas = measure_kernels(gen, big_ok=total >= 60 * GIB)
+    meas.update(measure_plugin_kernels(gen))
 
-    launches = main_path(gen)
+    ring_launches = main_path(gen)
+    plugin_launches = slice2_paths(gen)
+    launches = {k: ring_launches[k] for k in REPLACES
+                if SOURCE[k] == "ring.cu"}
+    launches.update({k: plugin_launches[k] for k in REPLACES
+                     if SOURCE[k] == "plugins.cu"})
     for k, v in launches.items():
         if v <= 0:
             fail(f"{k} was not launched on the main path")
     kernels = []
-    for k in ("ring_rs_kernel", "ring_ag_kernel", "chunked_rs_kernel",
-              "chunked_ag_kernel"):
+    for k in REPLACES:
         m = meas[k]
-        kernels.append({
+        entry = {
             "name": k, "route": "cuda",
-            "source": "accl_tpu_torch/csrc/ring.cu",
+            "source": f"accl_tpu_torch/csrc/{SOURCE[k]}",
             "replaces": REPLACES[k], "launches": launches[k],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
-            "shape": m["shape"], "ring_bound_ms": m["ring_bound_ms"]})
+            "shape": m["shape"]}
+        if "ring_bound_ms" in m:
+            entry["ring_bound_ms"] = m["ring_bound_ms"]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,7 +20,9 @@ import pytest
 import torch
 
 import accl_tpu
+from accl_tpu.arithconfig import ArithConfig as JArith
 from accl_tpu.config import ACCLConfig as JCfg
+from accl_tpu.config import Algorithm as JAlgo
 from accl_tpu.config import TransportBackend as JT
 from accl_tpu.constants import ACCLError as JACCLError
 from accl_tpu.constants import dataType as JdT
@@ -113,7 +115,8 @@ def test_reduce_scatter_and_allgather_match_jax(jacc, tacc):
 
 def test_host_api_semantics(jacc, tacc):
     """run_async, the INVALID_BUFFER_SIZE check on both packages, payloads
-    that stay on the device, and the unported RING window."""
+    that stay on the device, the RING window of reduce-scatter, copy,
+    combine and write_arithconfig."""
     count = 4096
     x = _data(7, (WORLD, count))
     send = tacc.create_buffer(count, at.dataType.float32, host_data=x)
@@ -151,14 +154,100 @@ def test_host_api_semantics(jacc, tacc):
                                 at.dataType.float32)
     assert torch.equal(recv.data, ref.expand(WORLD, count))
 
-    # 4-8 MiB of reduce-scatter input selects the RING family (as in the
-    # JAX package), which this slice does not port: the call says so
-    count = (5 << 20) // 4 // WORLD
-    send = tacc.create_buffer(WORLD * count, at.dataType.float32)
-    recv = tacc.create_buffer(count, at.dataType.float32)
+    # 4-8 MiB of reduce-scatter input selects the RING family on the
+    # intra-node tier, as in the JAX package: the same result bit for bit
+    count = (4 << 20) // 4 // WORLD
+    x = _data(11, (WORLD, WORLD * count))
+    want = _run(jacc, "reduce_scatter", WORLD * count, count, x,
+                JdT.float32, count=count, function=JrF.SUM,
+                algorithm=JAlgo.RING)
+    got = _run(tacc, "reduce_scatter", WORLD * count, count, x,
+               at.dataType.float32, count=count,
+               function=at.reduceFunction.SUM)
+    assert _algo(tacc, "reduce_scatter") == "ring"
+    assert np.array_equal(want, got)
+
+    _copy_and_combine(jacc, tacc)
+    _write_arithconfig_checks(jacc, tacc)
+
+
+def _copy_and_combine(jacc, tacc):
+    """copy and combine through both host APIs: bit-equal (combine through
+    the plugin lane, NaN and -0 included), the operand dtype check, and the
+    lane switch in the program-cache key."""
+    count = 777
+    x = _data(12, (WORLD, count))
+    x[0, :4] = [np.nan, -0.0, 0.0, -np.nan]
+    y = _data(13, (WORLD, count))
+    y[0, :4] = [1.0, 0.0, -0.0, 2.0]
+    outs = []
+    for acc, dt, func in ((jacc, JdT.float32, JrF.MAX),
+                          (tacc, at.dataType.float32,
+                           at.reduceFunction.MAX)):
+        a = acc.create_buffer(count, dt, host_data=x)
+        b = acc.create_buffer(count, dt, host_data=y)
+        r = acc.create_buffer(count, dt)
+        acc.combine(count, func, a, b, r)
+        c = acc.create_buffer(count, dt)
+        acc.copy(a, c, count)
+        outs.append((np.array(r.host), np.array(c.host)))
+    (jr, jc), (tr, tc) = outs
+    assert np.array_equal(jr.view(np.uint32), tr.view(np.uint32))
+    assert np.array_equal(jc.view(np.uint32), tc.view(np.uint32))
+    assert np.array_equal(tc.view(np.uint32), x.view(np.uint32))
+    assert tr.view(np.uint32)[0, 1] == 0      # max(-0, +0) is +0
+
+    a = tacc.create_buffer(8, at.dataType.float32)
+    b = tacc.create_buffer(8, at.dataType.bfloat16)
     with pytest.raises(at.ACCLError) as ei:
-        tacc.reduce_scatter(send, recv, count, at.reduceFunction.SUM)
-    assert ei.value.code == at.errorCode.COLLECTIVE_NOT_IMPLEMENTED
+        tacc.combine(8, at.reduceFunction.SUM, a, b, a)
+    assert ei.value.code == at.errorCode.ARITH_ERROR
+    with pytest.raises(at.ACCLError) as ei:
+        tacc.copy(a, a, 9)
+    assert ei.value.code == at.errorCode.INVALID_BUFFER_SIZE
+    keys = [k for k in tacc._programs._cache
+            if k[0] == at.operation.combine]
+    assert keys and all(k[-1] is True for k in keys)
+    saved = tacc.config
+    try:
+        tacc.config = saved.replace(use_pallas=False)
+        tacc.combine(8, at.reduceFunction.SUM, a, a, a)
+        assert (at.operation.combine, 8, at.dataType.float32,
+                at.reduceFunction.SUM, False) in tacc._programs._cache
+    finally:
+        tacc.config = saved
+
+
+def _write_arithconfig_checks(jacc, tacc):
+    """The three validations of a quantized pair raise the same code in
+    both packages; a valid one is registered."""
+    for acc, A, dT, err, exc in (
+            (jacc, JArith, JdT, JErr, JACCLError),
+            (tacc, at.ArithConfig, at.dataType, at.errorCode,
+             at.ACCLError)):
+        bad = (A(dT.float32, dT.int8, quant_scale=4.0),
+               A(dT.float32, dT.int8, arith_is_compressed=False,
+                 quant_scale=0.0),
+               A(dT.float32, dT.float16, arith_is_compressed=False,
+                 quant_scale=4.0))
+        for cfg in bad:
+            with pytest.raises(exc) as ei:
+                acc.write_arithconfig(cfg)
+            assert ei.value.code == err.COMPRESSION_NOT_SUPPORTED, cfg
+        ok = A(dT.float32, dT.int8, arith_is_compressed=False,
+               quant_scale=4.0)
+        acc.write_arithconfig(ok)
+        assert acc._arith_configs[(dT.float32, dT.int8)] == ok
+    from accl_tpu_torch.parallel import hierarchical
+    with pytest.raises(ValueError, match="dcn_wire_dtype"):
+        tacc.config = tacc.config.replace(dcn_wire_dtype="fp8")
+    assert tacc.config.dcn_wire_dtype == "off"
+    tacc.config = tacc.config.replace(dcn_wire_dtype="bf16_sr")
+    try:
+        assert hierarchical.get_dcn_wire_dtype() == "bf16_sr"
+    finally:
+        tacc.config = tacc.config.replace(dcn_wire_dtype="off")
+    assert hierarchical.get_dcn_wire_dtype() == "off"
 
 
 def test_config_and_stats(tacc):
@@ -184,7 +273,6 @@ def test_config_and_stats(tacc):
     assert st["hwid"]["world_size"] == WORLD
     assert st["config"]["transport"] == "ici"
     pc = st["program_cache"]
-    # a build that raised (the unported RING window) counts a miss only
     assert 1 <= pc["programs"] <= pc["misses"]
 
 

@@ -1,5 +1,6 @@
-"""The port's CUDA ring kernels against their plain PyTorch versions on the
-card: bit-equal (``torch.equal``). These tests need an NVIDIA GPU with
+"""The port's CUDA kernels (the ring kernels and the plugin lanes) against
+their plain PyTorch versions on the card: bit-equal (``torch.equal``, or
+the raw bits where NaN can occur). These tests need an NVIDIA GPU with
 ``nvcc`` (the kernels build at first use); where no card is visible they
 skip. On the card, where JAX is not installed, skip the suite's conftest:
 ``pytest --noconftest tests/test_torch_cuda.py -m cuda``.
@@ -32,12 +33,34 @@ def _make(shape, dtype, gen):
 
 DTYPES = [torch.float32, torch.int32, torch.bfloat16, torch.float16,
           torch.float64]
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
+
+
+def _specials(n: int, gen) -> torch.Tensor:
+    """f32 with NaN, -NaN, +-0, +-inf, subnormals and out-of-range values
+    spread over random data."""
+    x = torch.randn(n, generator=gen, device="cuda")
+    sp = torch.tensor([float("nan"), -float("nan"), 0.0, -0.0,
+                       float("inf"), -float("inf"), 1e-40, -1e-40, 3.4e38,
+                       -3.4e38, 65520.0, 65519.0, 6e-8, 1e-45],
+                      device="cuda")
+    x[::7][:sp.numel()] = sp
+    return x
 WIRES = [(torch.bfloat16, None), (torch.float16, None), (torch.int8, 10.0)]
 
 
 def test_reduce_scatter_kernels(gen):
     """ring_rs_kernel over P in {2, 3, 8}, every dtype, SUM and MAX, at a
-    ragged length; chunked_rs_kernel with each wire, both directions."""
+    ragged length, and MAX on +-0 / NaN; chunked_rs_kernel with each wire,
+    both directions; then the plugin combine kernel (the other fold)."""
     from accl_tpu_torch.constants import reduceFunction
     from accl_tpu_torch.parallel import pallas_chunked as pc
     from accl_tpu_torch.parallel import pallas_ring as pr
@@ -48,6 +71,15 @@ def test_reduce_scatter_kernels(gen):
                 assert torch.equal(pr.ring_reduce_scatter(x, f),
                                    pr.plain_ring_reduce_scatter(x, f)), \
                     (P, dtype, f.name)
+    # IEEE maximum on +-0 / NaN: +0 > -0, NaN propagates
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.where(torch.rand((8, 8, 1000), generator=gen,
+                                   device="cuda") < 0.5, 0.0, -0.0)
+        x[0, 3, ::97] = float("nan")
+        x = x.to(dtype)
+        assert _same_bits(pr.ring_reduce_scatter(x, reduceFunction.MAX),
+                          pr.plain_ring_reduce_scatter(
+                              x, reduceFunction.MAX)), dtype
     f = reduceFunction.SUM
     for wire in WIRES:
         for bidir in (False, True):
@@ -56,9 +88,43 @@ def test_reduce_scatter_kernels(gen):
                 pc.chunked_reduce_scatter(x, f, wire, bidir),
                 pc.plain_chunked_reduce_scatter(x, f, wire, bidir)), \
                 (wire, bidir)
+    _combine_kernel_cases(gen)
+
+
+def _combine_kernel_cases(gen):
+    """combine_kernel (csrc/plugins.cu) against plain_combine: every lane
+    dtype, SUM and MAX, with and without donate, ragged, aligned and
+    misaligned (scalar path), NaN and +-0 compared by bits."""
+    from accl_tpu_torch.constants import reduceFunction
+    from accl_tpu_torch.ops import reduce_ops as ro
+    for dtype in (torch.float32, torch.bfloat16, torch.float16,
+                  torch.int32):
+        for n in (1000, 4096, 4099):
+            if dtype == torch.int32:
+                a, b = (torch.randint(-2 ** 31, 2 ** 31 - 1, (2, n),
+                                      generator=gen, device="cuda",
+                                      dtype=torch.int32))
+            else:
+                a = _specials(n, gen).to(dtype)
+                b = torch.roll(_specials(n, gen), 1).to(dtype)
+                b[::5] = -a[::5]
+            for func in (reduceFunction.SUM, reduceFunction.MAX):
+                want = ro.plain_combine(a, b, func)
+                assert _same_bits(ro.pallas_combine(a, b, func), want), \
+                    (dtype, n, func.name)
+                acc = a.clone()
+                out = ro.pallas_combine(acc, b, func, donate=True)
+                assert out is acc and _same_bits(out, want), \
+                    (dtype, n, func.name, "donate")
+                a1, b1 = a[1:], b[1:]          # 16-byte misaligned
+                assert _same_bits(ro.pallas_combine(a1, b1, func),
+                                  ro.plain_combine(a1, b1, func)), \
+                    (dtype, n, func.name, "misaligned")
 
 
 def test_allgather_kernels(gen):
+    """ring_ag_kernel and chunked_ag_kernel, then the plugin cast and
+    stochastic-round kernels (the wire)."""
     from accl_tpu_torch.parallel import pallas_chunked as pc
     from accl_tpu_torch.parallel import pallas_ring as pr
     for dtype in (torch.int8, torch.bfloat16, torch.float32, torch.int64):
@@ -70,6 +136,31 @@ def test_allgather_kernels(gen):
             assert torch.equal(pc.chunked_allgather(b, bidir),
                                pc.plain_chunked_allgather(b, bidir)), \
                 (dtype, bidir)
+    _cast_and_round_cases(gen)
+
+
+def _cast_and_round_cases(gen):
+    """cast_kernel over the four CAST_PAIRS and sr_kernel (scalar and
+    per-row seeds, ragged and aligned) against their plain versions, by
+    bits; NaN keeps the JAX lane's patterns."""
+    from accl_tpu_torch.ops import compression as cp
+    for n in (1000, 4096, 4099):
+        x = _specials(n, gen)
+        for dst in (torch.bfloat16, torch.float16):
+            y = cp.pallas_cast(x, dst)
+            assert _same_bits(y, cp.plain_cast(x, dst)), (n, dst)
+            assert _same_bits(cp.pallas_cast(y, torch.float32),
+                              cp.plain_cast(y, torch.float32)), (n, dst)
+        assert _bits(cp.pallas_cast(x, torch.bfloat16))[:8:7].tolist() == \
+            [0x7FC0, -64]                       # 0x7FC0, 0xFFC0
+        for seed in (0, 7, -123456789):
+            assert _same_bits(
+                cp.pallas_compress_stochastic(x, seed=seed),
+                cp.plain_compress_stochastic(x, seed)), (n, seed)
+        rows = _specials(8 * n, gen).view(8, n)
+        seeds = torch.arange(-3, 5, dtype=torch.int32, device="cuda") * 977
+        assert _same_bits(cp.pallas_compress_stochastic(rows, seed=seeds),
+                          cp.plain_compress_stochastic(rows, seeds)), n
 
 
 def test_accl_allreduce_on_card(gen, monkeypatch):

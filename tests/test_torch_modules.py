@@ -1,5 +1,6 @@
 """The port's value types and host plumbing against the JAX package's:
 enums, the dtype policy, the configuration schema, the wire codecs, the
+plugin lanes (combine, cast, stochastic round, per-leg seeds), the
 program cache, the metrics core, buffers, requests and bring-up.
 
 Each test runs a group of checks (the ``_`` helpers below), so the port
@@ -219,6 +220,18 @@ def _request_on_cpu():
     assert seen == []
 
 
+def _timer_counts_up():
+    from accl_tpu.utils.timing import Timer as JTimer
+    from accl_tpu_torch.utils.timing import Timer
+    t = Timer()
+    assert t.elapsed() == 0.0 and t.elapsed_ns() == 0
+    t.start()
+    t.end()
+    assert t.elapsed_ns() >= 0 and t.elapsed() == t.elapsed_ns() / 1e3
+    assert [m for m in vars(JTimer) if not m.startswith("__")] == \
+        [m for m in vars(Timer) if not m.startswith("__")]
+
+
 def _bringup_and_defaults():
     from accl_tpu_torch.utils.bringup import detect_backend
     assert detect_backend("cpu") == at.TransportBackend.SIM
@@ -252,6 +265,195 @@ def _world1_and_compression_errors():
     assert ei.value.code == at.errorCode.COMPRESSION_NOT_SUPPORTED
 
 
+def _bits(a) -> np.ndarray:
+    """The raw bits of a numpy or torch array (uint16/uint32)."""
+    if isinstance(a, torch.Tensor):
+        a = a.view({2: torch.int16, 4: torch.int32}[a.element_size()]) \
+            .numpy()
+    a = np.asarray(a)
+    return a.view({2: np.uint16, 4: np.uint32}[a.dtype.itemsize])
+
+
+def _specials(n: int, seed: int) -> np.ndarray:
+    """Random f32 with NaN, -NaN, +-0, +-inf, subnormals and values past
+    the f16 and bf16 ranges."""
+    x = np.random.default_rng(seed).standard_normal(n).astype(np.float32)
+    sp = np.array([np.nan, -np.nan, 0.0, -0.0, np.inf, -np.inf, 1e-40,
+                   -1e-40, 3.4e38, -3.4e38, 65520.0, 65519.0, 6e-8, 1e-45],
+                  np.float32)
+    x[::7][:len(sp)] = sp
+    return x
+
+
+def _combine_lane_matches():
+    """pallas_combine against the JAX Pallas lane (interpret), by bits:
+    f32/bf16/f16/i32, SUM and MAX, NaN and +-0 included; donate writes
+    operand a."""
+    from accl_tpu.ops import reduce_ops as jro
+    from accl_tpu_torch.ops import reduce_ops as tro
+    # no subnormals here: XLA on the CPU flushes them to zero in max
+    a32, b32 = (np.where(np.abs(v) < 1.2e-38, np.float32(0.0), v)
+                .astype(np.float32) for v in (_specials(1000, 12),
+                                              _specials(1000, 13)))
+    b32 = np.roll(b32, 1)                  # a NaN meets a number
+    pair = np.arange(0, 1000, 5)
+    pair = pair[np.isfinite(a32[pair])]
+    b32[pair] = -a32[pair]                 # x + -x and ties of +0 / -0
+    ints = np.random.default_rng(14).integers(-2 ** 31, 2 ** 31, (2, 1000),
+                                              dtype=np.int64)
+    for dt in ("float32", "bfloat16", "float16", "int32"):
+        if dt == "int32":
+            ja, jb = (ints[0].astype(np.int32), ints[1].astype(np.int32))
+        else:
+            ja, jb = (jnp.asarray(a32).astype(dt), jnp.asarray(b32).astype(dt))
+        ta, tb = (torch.from_numpy(np.asarray(v).view(
+            np.int16 if dt in ("bfloat16", "float16") else
+            np.asarray(v).dtype).copy()) for v in (ja, jb))
+        if dt in ("bfloat16", "float16"):
+            ta, tb = ta.view(getattr(torch, dt)), tb.view(getattr(torch, dt))
+        for fn in ("SUM", "MAX"):
+            want = jro.pallas_combine(ja, jb, jconst.reduceFunction[fn])
+            got = tro.pallas_combine(ta, tb, tconst.reduceFunction[fn])
+            assert np.array_equal(_bits(want), _bits(got)), (dt, fn)
+            acc = ta.clone()
+            out = tro.pallas_combine(acc, tb, tconst.reduceFunction[fn],
+                                     donate=True)
+            assert out is acc and torch.equal(_as_int(out), _as_int(got))
+    assert [int(d) for d in tro.PALLAS_DTYPES] == \
+        [int(d) for d in jro.PALLAS_DTYPES]
+    # a registered lane takes over the registry's combine and cast
+    from accl_tpu_torch.ops import compression as tcomp
+    f32, bf16 = tconst.dataType.float32, tconst.dataType.bfloat16
+    SUM = tconst.reduceFunction.SUM
+    treg.register_combine(SUM, f32, tro.make_combine(SUM, f32))
+    treg.register_cast(f32, bf16, tcomp.make_cast(f32, bf16))
+    try:
+        x = torch.from_numpy(a32)
+        assert treg._COMBINE_REGISTRY[(SUM, f32)].__name__ == \
+            "pallas_sum_float32"
+        assert torch.equal(_as_int(treg.combine(x, x, SUM, f32)),
+                           _as_int(tro.plain_combine(x, x, SUM)))
+        assert torch.equal(_as_int(treg.compress(x, f32, bf16)),
+                           _as_int(tcomp.plain_cast(x, torch.bfloat16)))
+    finally:
+        treg._COMBINE_REGISTRY.clear()
+        treg._CAST_REGISTRY.clear()
+
+
+def _as_int(t: torch.Tensor) -> torch.Tensor:
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def _cast_lane_matches():
+    """pallas_cast against the JAX Pallas lane (interpret), by bits, for
+    the four CAST_PAIRS: NaN keeps XLA's bit patterns, overflow goes to
+    inf, subnormals stay."""
+    from accl_tpu.ops import compression as jcomp
+    from accl_tpu_torch.ops import compression as tcomp
+    x = _specials(1000, 15)
+    x[1:4] = np.array([0x7FA00000, 0x7F800001, 0xFFC00001],
+                      np.uint32).view(np.float32)          # NaN payloads
+    narrow = {}
+    for dst in ("bfloat16", "float16"):
+        want = jcomp.pallas_cast(jnp.asarray(x), getattr(jnp, dst))
+        got = tcomp.pallas_cast(torch.from_numpy(x), getattr(torch, dst))
+        assert np.array_equal(_bits(want), _bits(got)), dst
+        narrow[dst] = (want, got)
+    # x[0] and x[7] are the quiet NaN and its negation
+    assert list(_bits(narrow["bfloat16"][1])[[0, 7]]) == [0x7FC0, 0xFFC0]
+    assert list(_bits(narrow["float16"][1])[[0, 7]]) == [0x7E00, 0xFE00]
+    for src, pats in (("bfloat16", [0x7FC0, 0xFFC0, 0x7F81, 0x0001]),
+                      ("float16", [0x7E00, 0xFE00, 0x7C01, 0x0001])):
+        want, got = narrow[src]
+        want = jnp.concatenate([want, jnp.asarray(
+            np.array(pats, np.uint16).view(np.int16)).view(want.dtype)])
+        got = torch.cat([got, torch.from_numpy(
+            np.array(pats, np.uint16).view(np.int16)).view(got.dtype)])
+        assert np.array_equal(
+            _bits(jcomp.pallas_cast(want, jnp.float32)),
+            _bits(tcomp.pallas_cast(got, torch.float32))), src
+    assert [(int(a), int(b)) for a, b in tcomp.CAST_PAIRS] == \
+        [(int(a), int(b)) for a, b in jcomp.CAST_PAIRS]
+
+
+def _stochastic_round_properties():
+    """The port's SR (its own hash, not the TPU PRNG) against the JAX
+    package's lane, which off the TPU is the deterministic cast: every
+    output is one of x's two bf16 neighbours, so within one bf16 ulp of
+    the JAX output, and over 8 seeds the mean bias is no larger than the
+    deterministic cast's (tests/test_collective_matmul.py's TPU bound).
+    NaN and inf as in the cast."""
+    from accl_tpu.ops import compression as jcomp
+    from accl_tpu_torch.ops import compression as tcomp
+    x = (np.random.default_rng(16).standard_normal((64, 128))
+         .astype(np.float32) * (1.0 + 2 ** -9))
+    det = np.asarray(jcomp.pallas_compress_stochastic(
+        jnp.asarray(x), jnp.bfloat16, seed=0).astype(jnp.float32))
+    lo = (x.view(np.uint32) & np.uint32(0xFFFF0000)).view(np.float32)
+    hi = (lo.view(np.uint32) + np.uint32(0x10000)).view(np.float32)
+    outs = []
+    for seed in range(8):
+        sr = tcomp.pallas_compress_stochastic(torch.from_numpy(x),
+                                              torch.bfloat16, seed=seed)
+        sr = sr.float().numpy()
+        assert ((sr == lo) | (sr == hi)).all(), seed
+        assert (np.abs(sr - det) <= np.abs(hi - lo)).all(), seed
+        outs.append(sr)
+    assert len({o.tobytes() for o in outs}) == 8
+    det_bias = abs(float(np.mean(det - x)))
+    sr_bias = abs(float(np.mean(np.mean(outs, axis=0) - x)))
+    assert sr_bias <= det_bias + 1e-6
+    # one seed per row: row r rounds as a lone payload seeded seeds[r]
+    seeds = torch.tensor([5, -7, 1 << 30], dtype=torch.int32)
+    rows = torch.from_numpy(x[:3])
+    whole = tcomp.pallas_compress_stochastic(rows, seed=seeds)
+    for r in range(3):
+        one = tcomp.pallas_compress_stochastic(rows[r].contiguous(),
+                                               seed=int(seeds[r]))
+        assert torch.equal(_as_int(whole[r]), _as_int(one)), r
+    sp = torch.from_numpy(_specials(128, 17))
+    got = _bits(tcomp.pallas_compress_stochastic(sp, seed=3))
+    want = _bits(tcomp.plain_cast(sp, torch.bfloat16))
+    special = ~torch.isfinite(sp).numpy()
+    assert np.array_equal(got[special], want[special])
+
+
+def _dcn_wire_inertness_matches():
+    from accl_tpu_torch.parallel import hierarchical as thier
+    assert thier.DCN_WIRE_DTYPES == jhier.DCN_WIRE_DTYPES
+    casting = (jarith.DEFAULT_ARITH_CONFIG[(jconst.dataType.float32,
+                                            jconst.dataType.bfloat16)],
+               tarith.DEFAULT_ARITH_CONFIG[(tconst.dataType.float32,
+                                            tconst.dataType.bfloat16)])
+    for dt in tconst.dataType:
+        jdt = jconst.dataType(int(dt))
+        for ja, ta in ((None, None), casting):
+            assert thier.dcn_wire_inert(dt, ta) == \
+                jhier.dcn_wire_inert(jdt, ja), (dt, ta)
+
+
+def _derive_seed_matches():
+    from accl_tpu.ops import compression as jcomp
+    from accl_tpu_torch.ops import compression as tcomp
+    bases = [0, 1, -1, 7, -(2 ** 31), 2 ** 31 - 1, 123456789, -987654321]
+    for base in bases:
+        for step in (0, 1, 2, 17):
+            want = int(jcomp.derive_seed(jnp.int32(base), step))
+            assert tcomp.derive_seed(base, step) == want, (base, step)
+    got = tcomp.derive_seed(torch.tensor(bases, dtype=torch.int32), 1)
+    assert got.dtype == torch.int32
+    assert got.tolist() == [int(jcomp.derive_seed(jnp.int32(b), 1))
+                            for b in bases]
+    import jax
+    x = np.random.default_rng(18).standard_normal((4, 333)).astype(
+        np.float32) * 1e30
+    want = [int(jnp.sum(jax.lax.bitcast_convert_type(jnp.asarray(r),
+                                                     jnp.int32),
+                        dtype=jnp.int32)) for r in x]
+    assert tcomp.payload_seed_base(torch.from_numpy(x)).tolist() == want
+
+
 def test_value_types_match():
     _enums_match()
     _constants_and_dtypes_match()
@@ -265,6 +467,11 @@ def test_wire_codecs_and_fold_match():
         _wire_codec_matches(scale)
     for fn in ("SUM", "MAX"):
         _reduce_axis0_matches(fn)
+    _combine_lane_matches()
+    _cast_lane_matches()
+    _stochastic_round_properties()
+    _derive_seed_matches()
+    _dcn_wire_inertness_matches()
 
 
 def test_host_plumbing():
@@ -272,6 +479,7 @@ def test_host_plumbing():
     _metrics_core()
     _buffer_host_mirror_is_lazy()
     _request_on_cpu()
+    _timer_counts_up()
     _bringup_and_defaults()
     _cuda_is_the_default_device()
     _world1_and_compression_errors()

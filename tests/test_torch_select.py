@@ -1,7 +1,8 @@
 """Selection parity: the port's ``algorithms.select`` resolves the same
 algorithm family as the JAX package's for allreduce, reduce-scatter and
 all-gather over a 4 B - 1 GiB sweep (the ladder plus the synthesizer's
-latency tier), on the intra-node tier and the emulator rung."""
+latency tier), on the intra-node tier, the emulator rung and DCN; and
+every family AUTO resolves there builds."""
 import jax
 import pytest
 import torch
@@ -22,12 +23,12 @@ SIZES = [1 << e for e in range(2, 31)] + [3, 1000, 8191, 8192, 1048575]
 
 
 def test_select_parity_sweep():
-    """Every op and size at worlds 2, 3 and 8, on the intra-node tier and
-    the emulator rung."""
+    """Every op and size at worlds 2, 3 and 8, on the intra-node tier, the
+    emulator rung and DCN; then the AUTO build sweep."""
     for world in (2, 3, 8):
         jcomm = JComm(jax.devices()[:world])
         tcomm = at.Communicator(world, "cpu")
-        for transport in ("ici", "sim"):
+        for transport in ("ici", "sim", "dcn"):
             jcfg = JCfg(transport=JT(transport))
             tcfg = at.ACCLConfig(transport=at.TransportBackend(transport))
             for op in OPS:
@@ -38,6 +39,27 @@ def test_select_parity_sweep():
                                     count=nbytes // 4)
                     assert t.value == j.value, (op, nbytes, world,
                                                 transport)
+    _auto_builds_everywhere()
+
+
+def _auto_builds_everywhere():
+    """No AUTO resolution of the three ops raises at world 8: every
+    power-of-4 size from 4 B to 1 GiB on SIM, ICI and DCN resolves and
+    builds its program (built, not run)."""
+    f32, SUM = at.dataType.float32, at.reduceFunction.SUM
+    for transport in ("sim", "ici", "dcn"):
+        acc = at.ACCL(world=8, device="cpu", config=at.ACCLConfig(
+            transport=at.TransportBackend(transport)))
+        for e in range(0, 15):
+            nbytes = 4 << (2 * e)
+            count = nbytes // 4
+            specs = (
+                acc._spec_allreduce(count, f32, SUM, None, None),
+                acc._spec_reduce_scatter(max(1, count // 8), f32, SUM,
+                                         None, None),
+                acc._spec_allgather(count, f32, None, None))
+            for key, build in specs:
+                assert callable(build()), (transport, nbytes, key)
 
 
 def _main_path_families_at_world8():
@@ -90,14 +112,30 @@ def _explicit_request_and_fallback():
 
 
 def _unported_families_raise():
+    """MULTIAXIS (the synthesizer's) is the one family still unported; the
+    others build, the hierarchical one refusing DCN without a host-aligned
+    shape as the JAX package does."""
     tcomm = at.Communicator(8, "cpu")
-    for algo in ("ring", "tree", "hier", "multiaxis", "twotier"):
+    f32, SUM = at.dataType.float32, at.reduceFunction.SUM
+    for build in (lambda a: talg.build_allreduce(tcomm, SUM, f32, a, None),
+                  lambda a: talg.build_allgather(tcomm, a, None, f32),
+                  lambda a: talg.build_reduce_scatter(tcomm, SUM, f32, a,
+                                                      None)):
         with pytest.raises(at.ACCLError) as ei:
-            talg.build_allreduce(tcomm, at.reduceFunction.SUM,
-                                 at.dataType.float32, at.Algorithm(algo),
-                                 None)
+            build(at.Algorithm.MULTIAXIS)
         assert ei.value.code == at.errorCode.COLLECTIVE_NOT_IMPLEMENTED
         assert "ROADMAP.md" in str(ei.value)
+        for algo in ("ring", "twotier", "xla", "pallas"):
+            assert callable(build(at.Algorithm(algo)))
+    for algo in ("tree", "hier", "flat"):
+        assert callable(talg.build_allreduce(tcomm, SUM, f32,
+                                             at.Algorithm(algo), None))
+    with pytest.raises(ValueError, match="host-aligned"):
+        talg.build_allreduce(tcomm, SUM, f32, at.Algorithm.HIERARCHICAL,
+                             None, on_dcn=True)
+    with pytest.raises(ValueError, match="composite"):
+        talg.build_allreduce(at.Communicator(7, "cpu"), SUM, f32,
+                             at.Algorithm.TWOTIER, None)
 
 
 def test_select_behaviour():
