@@ -10,9 +10,12 @@ the send buffer's device tensor and stores the result in the receive
 buffer, syncing host mirrors unless ``from_device``/``to_device`` say the
 payload stays on the device. Ported so far: ``allreduce``,
 ``reduce_scatter`` and ``allgather`` with every algorithm family but
-MULTIAXIS, the local primitives ``copy`` and ``combine``, and
-``write_arithconfig``; the rooted collectives, send/recv, sub-communicators
-and the resilience and observability tiers come with later slices.
+MULTIAXIS; the rooted collectives ``bcast``, ``scatter``, ``gather`` and
+``reduce`` with every family the JAX package offers for them (the
+segmented relay kernels on ``PALLAS``); ``barrier``; the local primitives
+``copy`` and ``combine``; and ``write_arithconfig``. ``alltoall`` raises
+``COLLECTIVE_NOT_IMPLEMENTED``; send/recv, sub-communicators and the
+resilience and observability tiers come with later slices.
 """
 from __future__ import annotations
 
@@ -259,6 +262,75 @@ class ACCL:
                     comm, algo, arith, dtype, seg, bidir, mesh_shape=ts,
                     dcn_wire_dtype=dw))
 
+    def _spec_bcast(self, count: int, dtype: dataType, root: int,
+                    compress_dtype, algorithm):
+        comm = self.comms[0]
+        arith = self._arith(dtype, compress_dtype)
+        algo = algorithms.select(
+            operation.bcast, count * constants.dtype_size(dtype), comm,
+            self.config, algorithm)
+        seg = self.config.segment_size
+        return ((operation.bcast, count, dtype, root, compress_dtype, algo,
+                 seg),
+                lambda: algorithms.build_bcast(comm, root, algo, arith,
+                                               dtype, seg))
+
+    def _spec_scatter(self, count: int, dtype: dataType, root: int,
+                      compress_dtype, algorithm):
+        comm = self.comms[0]
+        arith = self._arith(dtype, compress_dtype)
+        # per-edge payload (each star edge moves `count` elements), the
+        # selection convention of gather, bcast and reduce
+        algo = algorithms.select(
+            operation.scatter, count * constants.dtype_size(dtype), comm,
+            self.config, algorithm)
+        seg = self.config.segment_size
+        return ((operation.scatter, count, dtype, root, compress_dtype, algo,
+                 seg),
+                lambda: algorithms.build_scatter(comm, root, algo, arith,
+                                                 dtype, seg))
+
+    def _flat_fanin(self, algo: Algorithm) -> int:
+        """The flat star's fan-in register, in the gather and reduce cache
+        keys as in the JAX package (ranks on one device need no throttle,
+        so the programs do not read it)."""
+        return (self.config.gather_flat_tree_max_fanin
+                if algo == Algorithm.FLAT else 0)
+
+    def _spec_gather(self, count: int, dtype: dataType, root: int,
+                     compress_dtype, algorithm):
+        comm = self.comms[0]
+        arith = self._arith(dtype, compress_dtype)
+        algo = algorithms.select(
+            operation.gather, count * constants.dtype_size(dtype), comm,
+            self.config, algorithm)
+        seg = self.config.segment_size
+        return ((operation.gather, count, dtype, root, compress_dtype, algo,
+                 self._flat_fanin(algo), seg),
+                lambda: algorithms.build_gather(comm, root, algo, arith,
+                                                dtype, seg))
+
+    def _spec_reduce(self, count: int, dtype: dataType, root: int,
+                     function: reduceFunction, compress_dtype, algorithm):
+        comm = self.comms[0]
+        arith = self._arith(dtype, compress_dtype)
+        if arith is not None and not arith.supports(function):
+            raise ACCLError(errorCode.ARITH_ERROR, f"{function} unsupported")
+        algo = algorithms.select(
+            operation.reduce, count * constants.dtype_size(dtype), comm,
+            self.config, algorithm, count=count)
+        seg = self.config.segment_size
+        return ((operation.reduce, count, dtype, root, function,
+                 compress_dtype, algo, self._flat_fanin(algo), seg),
+                lambda: algorithms.build_reduce(comm, root, function, dtype,
+                                                algo, arith, seg))
+
+    def _check_root(self, root: int) -> None:
+        if not 0 <= root < self.world_size:
+            raise ACCLError(errorCode.CONFIG_ERROR,
+                            f"root {root} outside ranks 0.."
+                            f"{self.world_size - 1}")
+
     # ------------------------------------------------------------------
     # primitives: copy / combine
     # ------------------------------------------------------------------
@@ -325,7 +397,7 @@ class ACCL:
                                           compress_dtype, algorithm)
         prog = self._programs.get(key, build)
         errors: list = []
-        self._store(recvbuf, count, prog(x, errors).to(recvbuf.torch_dtype))
+        self._store(recvbuf, count, prog(x, errors=errors).to(recvbuf.torch_dtype))
         _metrics.note_call(operation.allreduce,
                            count * constants.dtype_size(sendbuf.dtype),
                            sendbuf.dtype, key, t0)
@@ -350,12 +422,86 @@ class ACCL:
                                                algorithm)
         prog = self._programs.get(key, build)
         errors: list = []
-        self._store(recvbuf, count, prog(x, errors).to(recvbuf.torch_dtype))
+        self._store(recvbuf, count, prog(x, errors=errors).to(recvbuf.torch_dtype))
         _metrics.note_call(operation.reduce_scatter,
                            count * world * constants.dtype_size(sendbuf.dtype),
                            sendbuf.dtype, key, t0)
         return self._finish(operation.reduce_scatter, recvbuf, to_device,
                             run_async, errors)
+
+    def bcast(self, buf: Buffer, count: int, root: int,
+              from_device: bool = False, to_device: bool = False,
+              run_async: bool = False,
+              compress_dtype: Optional[dataType] = None,
+              algorithm: Optional[Algorithm] = None) -> Optional[Request]:
+        """Every rank's ``buf`` ends with the root's first ``count``
+        elements (``ACCL::bcast``)."""
+        t0 = _metrics.tick()
+        self._check_count(buf, count, "bcast")
+        self._check_root(root)
+        x = self._input(buf, count, from_device)
+        key, build = self._spec_bcast(count, buf.dtype, root, compress_dtype,
+                                      algorithm)
+        prog = self._programs.get(key, build)
+        errors: list = []
+        self._store(buf, count, prog(x, errors=errors).to(buf.torch_dtype))
+        _metrics.note_call(operation.bcast,
+                           count * constants.dtype_size(buf.dtype),
+                           buf.dtype, key, t0)
+        return self._finish(operation.bcast, buf, to_device, run_async,
+                            errors)
+
+    def scatter(self, sendbuf: Buffer, recvbuf: Buffer, count: int, root: int,
+                from_device: bool = False, to_device: bool = False,
+                run_async: bool = False,
+                compress_dtype: Optional[dataType] = None,
+                algorithm: Optional[Algorithm] = None) -> Optional[Request]:
+        """The root's ``count * world`` elements, chunked: rank r gets chunk
+        r (``ACCL::scatter``)."""
+        t0 = _metrics.tick()
+        world = self.world_size
+        self._check_count(sendbuf, count * world, "scatter send")
+        self._check_count(recvbuf, count, "scatter recv")
+        self._check_root(root)
+        x = self._input(sendbuf, count * world, from_device)
+        key, build = self._spec_scatter(count, sendbuf.dtype, root,
+                                        compress_dtype, algorithm)
+        prog = self._programs.get(key, build)
+        errors: list = []
+        self._store(recvbuf, count,
+                    prog(x, errors=errors).to(recvbuf.torch_dtype))
+        _metrics.note_call(operation.scatter,
+                           count * world * constants.dtype_size(sendbuf.dtype),
+                           sendbuf.dtype, key, t0)
+        return self._finish(operation.scatter, recvbuf, to_device, run_async,
+                            errors)
+
+    def gather(self, sendbuf: Buffer, recvbuf: Buffer, count: int, root: int,
+               from_device: bool = False, to_device: bool = False,
+               run_async: bool = False,
+               compress_dtype: Optional[dataType] = None,
+               algorithm: Optional[Algorithm] = None) -> Optional[Request]:
+        """Every rank's ``count`` elements, concatenated in rank order into
+        the root's ``recvbuf`` (its device row written in place); every
+        other rank's ``recvbuf`` keeps its content (``ACCL::gather``)."""
+        t0 = _metrics.tick()
+        world = self.world_size
+        self._check_count(sendbuf, count, "gather send")
+        self._check_count(recvbuf, count * world, "gather recv")
+        self._check_root(root)
+        x = self._input(sendbuf, count, from_device)
+        r = self._input(recvbuf, count * world, True)
+        key, build = self._spec_gather(count, sendbuf.dtype, root,
+                                       compress_dtype, algorithm)
+        prog = self._programs.get(key, build)
+        errors: list = []
+        self._store(recvbuf, count * world,
+                    prog(x, r, errors=errors).to(recvbuf.torch_dtype))
+        _metrics.note_call(operation.gather,
+                           count * constants.dtype_size(sendbuf.dtype),
+                           sendbuf.dtype, key, t0)
+        return self._finish(operation.gather, recvbuf, to_device, run_async,
+                            errors)
 
     def allgather(self, sendbuf: Buffer, recvbuf: Buffer, count: int,
                   from_device: bool = False, to_device: bool = False,
@@ -375,12 +521,70 @@ class ACCL:
         prog = self._programs.get(key, build)
         errors: list = []
         self._store(recvbuf, count * world,
-                    prog(x, errors).to(recvbuf.torch_dtype))
+                    prog(x, errors=errors).to(recvbuf.torch_dtype))
         _metrics.note_call(operation.allgather,
                            count * constants.dtype_size(sendbuf.dtype),
                            sendbuf.dtype, key, t0)
         return self._finish(operation.allgather, recvbuf, to_device,
                             run_async, errors)
+
+    def reduce(self, sendbuf: Buffer, recvbuf: Buffer, count: int, root: int,
+               function: reduceFunction, from_device: bool = False,
+               to_device: bool = False, run_async: bool = False,
+               compress_dtype: Optional[dataType] = None,
+               algorithm: Optional[Algorithm] = None) -> Optional[Request]:
+        """The root's ``recvbuf`` ends with the reduction of every rank's
+        ``count`` elements (its device row written in place); every other
+        rank's keeps its content (``ACCL::reduce``)."""
+        t0 = _metrics.tick()
+        self._check_count(sendbuf, count, "reduce send")
+        self._check_count(recvbuf, count, "reduce recv")
+        self._check_root(root)
+        x = self._input(sendbuf, count, from_device)
+        r = self._input(recvbuf, count, True)
+        key, build = self._spec_reduce(count, sendbuf.dtype, root, function,
+                                       compress_dtype, algorithm)
+        prog = self._programs.get(key, build)
+        errors: list = []
+        self._store(recvbuf, count,
+                    prog(x, r, errors=errors).to(recvbuf.torch_dtype))
+        _metrics.note_call(operation.reduce,
+                           count * constants.dtype_size(sendbuf.dtype),
+                           sendbuf.dtype, key, t0)
+        return self._finish(operation.reduce, recvbuf, to_device, run_async,
+                            errors)
+
+    def alltoall(self, sendbuf: Buffer, recvbuf: Buffer, count: int,
+                 from_device: bool = False, to_device: bool = False,
+                 run_async: bool = False,
+                 compress_dtype: Optional[dataType] = None,
+                 algorithm: Optional[Algorithm] = None) -> Optional[Request]:
+        """``ACCL::alltoall``: not ported yet; raises
+        ``COLLECTIVE_NOT_IMPLEMENTED`` naming the ROADMAP.md item that ports
+        it."""
+        world = self.world_size
+        self._check_count(sendbuf, count * world, "alltoall send")
+        self._check_count(recvbuf, count * world, "alltoall recv")
+        self._arith(sendbuf.dtype, compress_dtype)
+        algo = algorithms.select(
+            operation.alltoall, count * constants.dtype_size(sendbuf.dtype),
+            self.comms[0], self.config, algorithm)
+        algorithms.build_alltoall(self.comms[0], algo)
+
+    def barrier(self) -> None:
+        """``ACCL::barrier``: wait for every launch on the device, then run
+        the zero-payload program (a sum of one token per rank) and wait for
+        it."""
+        t0 = _metrics.tick()
+        comm = self.comms[0]
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prog = self._programs.get((operation.barrier,),
+                                  lambda: primitives.build_barrier(comm))
+        token = torch.ones(self.world_size, dtype=torch.int32,
+                           device=self.device)
+        prog(token).item()
+        _metrics.note_call(operation.barrier, 0, dataType.int32, None, t0)
 
     # ------------------------------------------------------------------
     # introspection

@@ -97,10 +97,10 @@ template <int DT> __device__ __forceinline__ float widen(typename Elem<DT>::S v)
   else return v;
 }
 
-// IEEE-754 maximum, compared in f32: true when max(a, b) is b (a's NaN
-// wins when both are NaN)
+// IEEE-754 maximum, compared in f32: true when max(a, b) is b. When both
+// are NaN, jnp.maximum on the CPU returns a if a's sign bit is set, else b.
 __device__ __forceinline__ bool max_is_second(float a, float b) {
-  if (a != a) return false;
+  if (a != a) return b != b && !(__float_as_uint(a) >> 31);
   if (b != b) return true;
   if (a == b) return (__float_as_uint(a) >> 31) && !(__float_as_uint(b) >> 31);
   return b > a;

@@ -5,6 +5,11 @@
 //   ring_ag_kernel     <- accl_tpu/parallel/pallas_ring.py     _ag_kernel
 //   chunked_rs_kernel  <- accl_tpu/parallel/pallas_chunked.py  _chunked_rs_kernel
 //   chunked_ag_kernel  <- accl_tpu/parallel/pallas_chunked.py  _chunked_ag_kernel
+// and the three segmented relays of the rooted collectives (bcast, scatter,
+// gather; reduce is chunked_rs_kernel then gather_relay_kernel):
+//   bcast_relay_kernel    <- accl_tpu/parallel/pallas_chunked.py  _chunked_bcast_kernel
+//   scatter_relay_kernel  <- accl_tpu/parallel/pallas_chunked.py  _chunked_scatter_kernel
+//   gather_relay_kernel   <- accl_tpu/parallel/pallas_chunked.py  _chunked_gather_kernel
 //
 // Rank model. A rank is a per-rank buffer reached through a pointer table
 // (RankPtrs): on one card every rank's row of a (P, ...) tensor, on
@@ -22,6 +27,11 @@
 // line is ever folded. The all-gathers forward straight out of the
 // upstream rank's output rows, which are written once, so they need
 // readiness flags only.
+//
+// The relays move a root's payload one neighbour at a time along the ring
+// (section "rooted relays" below). They are pure transport, templated on
+// the element's size, not its type: the TPU kernels run them in the wire
+// dtype.
 //
 // No hang: the grid is launched cooperatively, so it is co-resident or
 // refused, and every spin is bounded by %globaltimer. A spin that times out
@@ -143,11 +153,12 @@ __device__ __forceinline__ double add(double a, double b) { return a + b; }
 __device__ __forceinline__ bool sign_set(float v) { return (__float_as_uint(v) >> 31) != 0; }
 __device__ __forceinline__ bool sign_set(double v) { return __double_as_longlong(v) < 0; }
 
-// IEEE-754 maximum, like jnp.maximum: NaN propagates from either side
-// (a's when both are NaN) and +0 > -0. True when max(a, b) is b.
+// IEEE-754 maximum, like jnp.maximum: NaN propagates from either side and
+// +0 > -0; when both are NaN, jnp.maximum on the CPU returns a if a's sign
+// bit is set, else b. True when max(a, b) is b.
 template <typename A> __device__ __forceinline__ bool max_is_second(A a, A b) {
   if constexpr (std::is_floating_point<A>::value) {
-    if (a != a) return false;
+    if (a != a) return b != b && !sign_set(a);
     if (b != b) return true;
     if (a == b) return sign_set(a) && !sign_set(b);
   }
@@ -183,9 +194,22 @@ template <> struct Wire<float, int8_t> {
     const float q = fminf(fmaxf(rintf(v * s), -127.0f), 127.0f);
     return (int8_t)q;
   }
-  // x / s as XLA compiles it: x times the correctly rounded reciprocal
-  __device__ static float dec(int8_t w, float s) { return (float)w * __frcp_rn(s); }
+  // x / s as XLA compiles it: x times the correctly rounded reciprocal,
+  // rounded apart from any add that follows (__fmul_rn is never contracted)
+  __device__ static float dec(int8_t w, float s) { return __fmul_rn((float)w, __frcp_rn(s)); }
 };
+
+// Decompress a received value and fold it with the local one. With
+// `contract`, an int8 SUM rounds once: XLA compiles the segmented TPU
+// kernel's dequantize-and-add into a fused multiply-add (the VMEM-range
+// kernel's rounds twice).
+template <typename T, typename W>
+__device__ __forceinline__ T fold_in(W w, T loc, int func, float scale, bool contract) {
+  if constexpr (std::is_same<W, int8_t>::value && std::is_same<T, float>::value) {
+    if (contract && func == 0) return fmaf((float)w, __frcp_rn(scale), loc);
+  }
+  return fold<T>(Wire<T, W>::dec(w, scale), loc, func);
+}
 
 template <typename W> __device__ __forceinline__ W ld_cg(const W* p) {
   W w;
@@ -220,7 +244,8 @@ template <typename W> __device__ __forceinline__ W ld_cg(const W* p) {
 template <typename T, typename W>
 __device__ void rs_ring(const RankPtrs& x, const RankPtrs& out, const RankPtrs& stage,
                         int* flags, int P, int C, long long S, int nchan, int bidir,
-                        int func, float scale, unsigned long long timeout_ns) {
+                        int func, float scale, bool contract,
+                        unsigned long long timeout_ns) {
   const int r = blockIdx.z, ch = blockIdx.y, b = blockIdx.x, B = gridDim.x;
   const int d = (bidir && ch == 1) ? -1 : 1;
   const int upr = (r - d + P) % P;
@@ -261,11 +286,11 @@ __device__ void rs_ring(const RankPtrs& x, const RankPtrs& out, const RankPtrs& 
       if (last) {
         T* oc = o + (long long)c * S;
         for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x)
-          oc[i] = fold<T>(Wire<T, W>::dec(ld_cg(rx + i), scale), loc[i], func);
+          oc[i] = fold_in<T, W>(ld_cg(rx + i), loc[i], func, scale, contract);
       } else {
         W* nx = mine + ((k + 1) & 1) * S;
         for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x)
-          nx[i] = Wire<T, W>::enc(fold<T>(Wire<T, W>::dec(ld_cg(rx + i), scale), loc[i], func), scale);
+          nx[i] = Wire<T, W>::enc(fold_in<T, W>(ld_cg(rx + i), loc[i], func, scale, contract), scale);
       }
       block_fence();
       if (threadIdx.x == 0) {
@@ -329,7 +354,7 @@ template <typename T, typename W>
 __global__ void __launch_bounds__(ACCL_THREADS)
 ring_rs_kernel(RankPtrs x, RankPtrs out, RankPtrs stage, int* flags, int P, long long L,
                int func, float scale, unsigned long long timeout_ns) {
-  rs_ring<T, W>(x, out, stage, flags, P, 1, L, 1, 0, func, scale, timeout_ns);
+  rs_ring<T, W>(x, out, stage, flags, P, 1, L, 1, 0, func, scale, false, timeout_ns);
 }
 
 // _chunked_rs_kernel: C segments over two channels, optionally counter-rotating
@@ -338,7 +363,7 @@ __global__ void __launch_bounds__(ACCL_THREADS)
 chunked_rs_kernel(RankPtrs x, RankPtrs out, RankPtrs stage, int* flags, int P, int C,
                   long long S, int bidir, int func, float scale,
                   unsigned long long timeout_ns) {
-  rs_ring<T, W>(x, out, stage, flags, P, C, S, gridDim.y, bidir, func, scale, timeout_ns);
+  rs_ring<T, W>(x, out, stage, flags, P, C, S, gridDim.y, bidir, func, scale, true, timeout_ns);
 }
 
 // _ag_kernel
@@ -355,6 +380,157 @@ __global__ void __launch_bounds__(ACCL_THREADS)
 chunked_ag_kernel(RankPtrs x, RankPtrs out, int* flags, int P, int C, long long S,
                   int bidir, unsigned long long timeout_ns) {
   ag_ring<T>(x, out, flags, P, C, S, gridDim.y, bidir, timeout_ns);
+}
+
+// ---------------------------------------------------------------------------
+// rooted relays
+// ---------------------------------------------------------------------------
+//
+// One channel: CTA b of every rank owns elements [lo, hi) of every segment,
+// so it waits on CTA b of its neighbour only. pos = (r - root) % P is a
+// rank's ring position; data moves one position per hop, from pos - 1 to
+// pos, and every rank reads only its upstream neighbour's buffers. Each
+// hop is one segment read and written once. The root's own row is never
+// written: it is the source (bcast, scatter) or the home of its own block
+// (gather), which the bodies keep exact.
+
+template <typename T>
+__device__ __forceinline__ void copy_slice(T* dst, const T* src, long long lo, long long hi,
+                                           bool cg) {
+  if (cg) {
+    for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) dst[i] = ld_cg(src + i);
+  } else {
+    for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) dst[i] = src[i];
+  }
+}
+
+// _chunked_bcast_kernel. x[r]: (C, S), read at the root only; out[r]: (C, S).
+// Position 1 copies the root's segments where they lie; position p > 1
+// copies segment c from its upstream neighbour's output once that rank's
+// progress word says it holds c. Output rows are written once, so readiness
+// is the only flag (the TPU kernel's slot credits have nothing to guard):
+// the segments pipeline down the ring, ~(C + P - 2) segment copies deep.
+template <typename T>
+__global__ void __launch_bounds__(ACCL_THREADS)
+bcast_relay_kernel(RankPtrs x, RankPtrs out, int* flags, int P, int C, long long S, int root,
+                   unsigned long long timeout_ns) {
+  const int r = blockIdx.z, b = blockIdx.x, B = gridDim.x;
+  const int pos = (r - root + P) % P;
+  if (pos == 0) return;
+  const int up = (r - 1 + P) % P;
+  int* const err = flags + P * B;
+  auto prog = [&](int rank) { return flags + rank * B + b; };
+  const long long per = (S + B - 1) / B;
+  const long long lo = min(S, (long long)b * per), hi = min(S, lo + per);
+  const T* src = static_cast<const T*>(pos == 1 ? x.p[root] : out.p[up]);
+  T* o = static_cast<T*>(out.p[r]);
+  for (int c = 0; c < C; ++c) {
+    if (pos > 1 && !block_wait(prog(up), c + 1, err, timeout_ns)) return;
+    const long long off = (long long)c * S;
+    copy_slice(o + off, src + off, lo, hi, pos > 1);
+    block_fence();
+    if (threadIdx.x == 0) st_release(prog(r), c + 1);
+  }
+}
+
+// _chunked_scatter_kernel. x[r]: (P, C, S), the root's blocks by destination
+// rank (read at the root only); out[r]: (C, S); stage[r]: (2, S). Position
+// pos receives a stream of C * (P - pos) segments, the blocks of positions
+// pos, pos + 1, ..., P - 1 in turn: it keeps the first C (its own block) and
+// stages incoming t >= C as its outgoing k = t - C in slot k % 2 for its
+// downstream neighbour. Position 1 reads the root's blocks where they lie;
+// the others read their upstream neighbour's slots. Flags per (rank, CTA,
+// slot): ready = k + 1 once outgoing k is staged; cons = k + 1 once the
+// downstream neighbour has copied it, the credit to overwrite the slot.
+// Staged bytes are not output, so a relay needs these slots; the chain from
+// the root is acyclic and its last rank never waits downstream, so it
+// cannot deadlock.
+template <typename T>
+__global__ void __launch_bounds__(ACCL_THREADS)
+scatter_relay_kernel(RankPtrs x, RankPtrs out, RankPtrs stage, int* flags, int P, int C,
+                     long long S, int root, unsigned long long timeout_ns) {
+  const int r = blockIdx.z, b = blockIdx.x, B = gridDim.x;
+  const int pos = (r - root + P) % P;
+  if (pos == 0) return;
+  const int up = (r - 1 + P) % P;
+  const int nflag = P * B * 2;
+  int* const err = flags + 2 * nflag;
+  auto ready = [&](int rank, int slot) { return flags + (rank * B + b) * 2 + slot; };
+  auto cons = [&](int rank, int slot) { return flags + nflag + (rank * B + b) * 2 + slot; };
+  const long long per = (S + B - 1) / B;
+  const long long lo = min(S, (long long)b * per), hi = min(S, lo + per);
+  const T* xr = static_cast<const T*>(x.p[root]);
+  const T* ups = static_cast<const T*>(stage.p[up]);
+  T* mine = static_cast<T*>(stage.p[r]);
+  T* o = static_cast<T*>(out.p[r]);
+  const int n_in = (P - pos) * C;
+  for (int t = 0; t < n_in; ++t) {
+    const T* src;
+    if (pos == 1) {
+      const int dest = (root + 1 + t / C) % P;
+      src = xr + ((long long)dest * C + t % C) * S;
+    } else {
+      if (!block_wait(ready(up, t & 1), t + 1, err, timeout_ns)) return;
+      src = ups + (long long)(t & 1) * S;
+    }
+    const int k = t - C;
+    T* dst;
+    if (k < 0) {
+      dst = o + (long long)t * S;
+    } else {
+      // my slot k % 2 held outgoing k - 2: downstream must have copied it
+      if (k >= 2 && !block_wait(cons(r, k & 1), k - 1, err, timeout_ns)) return;
+      dst = mine + (long long)(k & 1) * S;
+    }
+    copy_slice(dst, src, lo, hi, pos > 1);
+    block_fence();
+    if (threadIdx.x == 0) {
+      if (k >= 0) st_release(ready(r, k & 1), k + 1);
+      if (pos > 1) st_release(cons(up, t & 1), t + 1);
+    }
+  }
+}
+
+// _chunked_gather_kernel. x[r]: (C, S), rank r's own block; out[r]: (P, C, S)
+// by source rank: the gathered blocks at the root, a relay store elsewhere
+// (the wrapper returns the root's row only). Blocks flow toward the root
+// one position per hop: position pos sends its own block, then relays the
+// pos - 1 blocks it received, first in first out. Its incoming segment t
+// (of (pos - 1) * C; the root's of (P - 1) * C) is its upstream neighbour's
+// outgoing t: that rank's own segment t while t < C, else the segment it
+// stored at its step t - C, read from its out rows. Incoming t belongs to
+// source rank r - 1 - t / C and lands in that rank's slot. Out rows are
+// written once, so readiness (prog = t + 1 once incoming t is stored)
+// suffices.
+template <typename T>
+__global__ void __launch_bounds__(ACCL_THREADS)
+gather_relay_kernel(RankPtrs x, RankPtrs out, int* flags, int P, int C, long long S, int root,
+                    unsigned long long timeout_ns) {
+  const int r = blockIdx.z, b = blockIdx.x, B = gridDim.x;
+  const int pos = (r - root + P) % P;
+  const int up = (r - 1 + P) % P;
+  int* const err = flags + P * B;
+  auto prog = [&](int rank) { return flags + rank * B + b; };
+  const long long per = (S + B - 1) / B;
+  const long long lo = min(S, (long long)b * per), hi = min(S, lo + per);
+  const T* ux = static_cast<const T*>(x.p[up]);
+  const T* uo = static_cast<const T*>(out.p[up]);
+  T* o = static_cast<T*>(out.p[r]);
+  const int n_in = (pos == 0 ? P - 1 : pos - 1) * C;
+  for (int t = 0; t < n_in; ++t) {
+    const int i = t / C, seg = t % C;
+    const long long slot = ((long long)((r - 1 - i + 2 * P) % P) * C + seg) * S;
+    const T* src;
+    if (i == 0) {
+      src = ux + (long long)seg * S;
+    } else {
+      if (!block_wait(prog(up), t - C + 1, err, timeout_ns)) return;
+      src = uo + slot;
+    }
+    copy_slice(o + slot, src, lo, hi, i > 0);
+    block_fence();
+    if (threadIdx.x == 0) st_release(prog(r), t + 1);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -398,6 +574,28 @@ static const void* ag_resolve(int chunked, int itemsize) {
   return nullptr;
 }
 
+enum { KIND_RS = 0, KIND_AG = 1, KIND_BCAST = 2, KIND_SCATTER = 3, KIND_GATHER = 4 };
+
+template <typename T>
+static const void* relay_fn(int kind) {
+  switch (kind) {
+    case KIND_BCAST: return (const void*)bcast_relay_kernel<T>;
+    case KIND_SCATTER: return (const void*)scatter_relay_kernel<T>;
+    case KIND_GATHER: return (const void*)gather_relay_kernel<T>;
+  }
+  return nullptr;
+}
+
+static const void* relay_resolve(int kind, int itemsize) {
+  switch (itemsize) {
+    case 1: return relay_fn<uint8_t>(kind);
+    case 2: return relay_fn<uint16_t>(kind);
+    case 4: return relay_fn<uint32_t>(kind);
+    case 8: return relay_fn<uint64_t>(kind);
+  }
+  return nullptr;
+}
+
 static cudaError_t capacity(const void* fn, int* ctas) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -431,8 +629,11 @@ static cudaError_t launch(const void* fn, int B, int nchan, int P, void** args,
 extern "C" {
 
 // Co-resident CTAs of one kernel on the current device (-1: no such kernel).
+// kind: KIND_*; dtype is the element size for every kind but KIND_RS.
 int accl_ring_capacity(int kind, int chunked, int dtype, int wire, int* ctas) {
-  const void* fn = kind == 0 ? rs_resolve(chunked, dtype, wire) : ag_resolve(chunked, dtype);
+  const void* fn = kind == KIND_RS   ? rs_resolve(chunked, dtype, wire)
+                   : kind == KIND_AG ? ag_resolve(chunked, dtype)
+                                     : relay_resolve(kind, dtype);
   if (fn == nullptr) return -1;
   return (int)capacity(fn, ctas);
 }
@@ -476,6 +677,27 @@ int accl_ring_ag(int chunked, int itemsize, const uint64_t* x, const uint64_t* o
   }
   void* args[] = {&tx, &to, &f, &P, &L, &tns};
   return (int)launch(fn, B, 1, P, args, static_cast<cudaStream_t>(stream));
+}
+
+// One rooted relay (kind KIND_BCAST, KIND_SCATTER or KIND_GATHER) over
+// elements of `itemsize` bytes; stage is read by the scatter only.
+int accl_ring_relay(int kind, int itemsize, const uint64_t* x, const uint64_t* out,
+                    const uint64_t* stage, void* flags, int P, int C, long long S, int B,
+                    int root, double timeout_s, void* stream) {
+  const void* fn = relay_resolve(kind, itemsize);
+  if (fn == nullptr || P < 1 || P > ACCL_MAX_RANKS || root < 0 || root >= P)
+    return (int)cudaErrorInvalidValue;
+  RankPtrs tx = table(x, P), to = table(out, P);
+  int* f = static_cast<int*>(flags);
+  unsigned long long tns = (unsigned long long)(timeout_s * 1e9);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kind == KIND_SCATTER) {
+    RankPtrs ts = table(stage, P);
+    void* args[] = {&tx, &to, &ts, &f, &P, &C, &S, &root, &tns};
+    return (int)launch(fn, B, 1, P, args, st);
+  }
+  void* args[] = {&tx, &to, &f, &P, &C, &S, &root, &tns};
+  return (int)launch(fn, B, 1, P, args, st);
 }
 
 const char* accl_ring_error_string(int code) {

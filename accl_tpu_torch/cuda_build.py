@@ -112,6 +112,10 @@ def _declare_ring(lib: ctypes.CDLL) -> None:
                                  c_ll, c_int, c_int, c_int, ctypes.c_double,
                                  c_p]
     lib.accl_ring_ag.restype = c_int
+    lib.accl_ring_relay.argtypes = [c_int, c_int, u64p, u64p, u64p, c_p,
+                                    c_int, c_int, c_ll, c_int, c_int,
+                                    ctypes.c_double, c_p]
+    lib.accl_ring_relay.restype = c_int
 
 
 def _declare_plugins(lib: ctypes.CDLL) -> None:

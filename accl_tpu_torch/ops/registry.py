@@ -42,11 +42,14 @@ def register_cast(src: dataType, dst: dataType, impl: Callable) -> None:
 
 
 def maximum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """IEEE-754 ``maximum`` (``jnp.maximum``): a NaN operand propagates
-    (``a``'s when both are NaN) and +0 > -0."""
+    """IEEE-754 ``maximum`` (``jnp.maximum``): a NaN operand propagates and
+    +0 > -0. When both are NaN, ``jnp.maximum`` on the CPU returns ``a`` if
+    its sign bit is set, else ``b`` (so the operand order of a fold shows in
+    the NaN bits)."""
     if not a.is_floating_point():
         return torch.maximum(a, b)
-    take_b = torch.isnan(b) & ~torch.isnan(a)
+    nan_a = torch.isnan(a)
+    take_b = torch.isnan(b) & (~nan_a | ~torch.signbit(a))
     take_b |= b > a
     take_b |= (a == b) & torch.signbit(a) & ~torch.signbit(b)
     return torch.where(take_b, b, a)

@@ -19,12 +19,13 @@ default config they return the ladder's decision. The registers that steer
 them stay inert here.
 
 Dispatch builds the XLA-role one-shot programs (:mod:`.primitives`), the
-flat allreduce (:mod:`.flat`), the ring kernels (``PALLAS``), the explicit
-ring (:mod:`.ring`), the tree allreduce (:mod:`.tree`), the 2-D
-hierarchical allreduce and, on an explicit request, the two-tier schedules
-(:mod:`.hierarchical`). Every family AUTO can resolve for allreduce,
-reduce-scatter and all-gather builds; only MULTIAXIS, which needs the
-synthesizer and which AUTO never selects on a single-axis mesh, raises
+flat stars (:mod:`.flat`), the ring kernels and the segmented relays
+(``PALLAS``), the explicit ring (:mod:`.ring`), the binary trees
+(:mod:`.tree`), the 2-D hierarchical allreduce and, on an explicit request,
+the two-tier schedules (:mod:`.hierarchical`). Every family AUTO can
+resolve for allreduce, reduce-scatter, all-gather, bcast, scatter, gather
+and reduce builds; MULTIAXIS, which needs the synthesizer and which AUTO
+never selects on a single-axis mesh, and every alltoall raise
 ``COLLECTIVE_NOT_IMPLEMENTED``.
 """
 from __future__ import annotations
@@ -38,7 +39,8 @@ from ..config import ACCLConfig, Algorithm, TransportBackend
 from ..constants import (ACCLError, dataType, errorCode, operation,
                          reduceFunction)
 from ..obs import metrics as _metrics
-from . import flat, hierarchical, pallas_ring, primitives, ring, tree
+from . import (flat, hierarchical, pallas_chunked, pallas_ring, primitives,
+               ring, tree)
 from .hierarchical import factor2d
 
 _SUPPORTED = {
@@ -74,9 +76,10 @@ _SEED_FIELDS = {
     operation.reduce_scatter: ("rs_ring_threshold", "rs_pallas_threshold"),
 }
 
-#: ROADMAP.md queue-1 item that ports each family still missing
+#: ROADMAP.md queue-1 item that ports each family or op still missing
 _ROADMAP_ITEM = {
     Algorithm.MULTIAXIS: "queue 1, item 8 (parallel/synth.py)",
+    operation.alltoall: "queue 1, item 5 (alltoall and its relay kernel)",
 }
 
 
@@ -256,7 +259,7 @@ def _select_legacy(op: operation, nbytes: int, comm: Communicator,
 # ---------------------------------------------------------------------------
 
 def _not_ported(op: operation, algo: Algorithm) -> ACCLError:
-    where = _ROADMAP_ITEM.get(algo, "a later slice")
+    where = _ROADMAP_ITEM.get(op, _ROADMAP_ITEM.get(algo, "a later slice"))
     return ACCLError(errorCode.COLLECTIVE_NOT_IMPLEMENTED,
                      f"{algo.name} {op.name} is not ported yet "
                      f"(ROADMAP.md {where})")
@@ -264,9 +267,9 @@ def _not_ported(op: operation, algo: Algorithm) -> ACCLError:
 
 def _no_kernels(prog: Callable) -> Callable:
     """Give a program of plain torch operations the builders' interface,
-    ``prog(x, errors=None)``; it launches no kernel, so it has no error
-    words to append."""
-    return lambda x, errors=None: prog(x)
+    ``prog(x, errors=None)`` (``prog(x, dest, errors=None)`` for gather and
+    reduce); it launches no kernel, so it has no error words to append."""
+    return lambda *operands, errors=None: prog(*operands)
 
 
 def _twotier_shape(comm: Communicator, mesh_shape=None) -> tuple:
@@ -371,3 +374,80 @@ def build_reduce_scatter(comm, func: reduceFunction, dt: dataType,
         raise _not_ported(operation.reduce_scatter, algo)
     return _no_kernels(primitives.build_reduce_scatter(comm, func, dt,
                                                        arith))
+
+
+def _needs_dt(op: operation, dt: Optional[dataType]) -> None:
+    if dt is None:
+        raise ValueError(f"Algorithm.PALLAS {op.name} requires dt")
+
+
+def build_bcast(comm, root: int, algo: Algorithm,
+                arith: Optional[ArithConfig],
+                dt: Optional[dataType] = None,
+                segment_bytes: Optional[int] = None) -> Callable:
+    if algo == Algorithm.PALLAS:
+        _needs_dt(operation.bcast, dt)
+        return pallas_chunked.build_chunked_ring_bcast(
+            comm, root, dt, segment_bytes, arith=arith)
+    if algo == Algorithm.FLAT:
+        return _no_kernels(flat.build_flat_bcast(comm, root, arith))
+    if algo == Algorithm.TREE:
+        return _no_kernels(tree.build_tree_bcast(comm, root, arith))
+    if algo == Algorithm.RING:
+        return _no_kernels(ring.build_ring_bcast(comm, root, arith))
+    return _no_kernels(primitives.build_bcast(comm, root, arith))
+
+
+def build_scatter(comm, root: int, algo: Algorithm,
+                  arith: Optional[ArithConfig],
+                  dt: Optional[dataType] = None,
+                  segment_bytes: Optional[int] = None) -> Callable:
+    if algo == Algorithm.PALLAS:
+        _needs_dt(operation.scatter, dt)
+        return pallas_chunked.build_chunked_ring_scatter(
+            comm, root, dt, segment_bytes, arith=arith)
+    if algo == Algorithm.FLAT:
+        return _no_kernels(flat.build_flat_scatter(comm, root, arith))
+    return _no_kernels(primitives.build_scatter(comm, root, arith))
+
+
+def build_gather(comm, root: int, algo: Algorithm,
+                 arith: Optional[ArithConfig],
+                 dt: Optional[dataType] = None,
+                 segment_bytes: Optional[int] = None) -> Callable:
+    """``prog(x, dest, errors=None)``. The JAX package's ``fanin`` argument
+    throttles the flat star's concurrent edges, which ranks on one device
+    do not need (:mod:`.flat`)."""
+    if algo == Algorithm.PALLAS:
+        _needs_dt(operation.gather, dt)
+        return pallas_chunked.build_chunked_ring_gather(
+            comm, root, dt, segment_bytes, arith=arith)
+    if algo == Algorithm.FLAT:
+        return _no_kernels(flat.build_flat_gather(comm, root, arith))
+    if algo == Algorithm.RING:
+        return _no_kernels(ring.build_ring_gather(comm, root, arith))
+    return _no_kernels(primitives.build_gather(comm, root, arith))
+
+
+def build_reduce(comm, root: int, func: reduceFunction, dt: dataType,
+                 algo: Algorithm, arith: Optional[ArithConfig],
+                 segment_bytes: Optional[int] = None) -> Callable:
+    """``prog(x, dest, errors=None)``; no ``fanin``, as for gather."""
+    if algo == Algorithm.PALLAS:
+        return pallas_chunked.build_chunked_ring_reduce(
+            comm, root, func, dt, segment_bytes, arith=arith)
+    if algo == Algorithm.FLAT:
+        return _no_kernels(flat.build_flat_reduce(comm, root, func, dt,
+                                                  arith))
+    if algo == Algorithm.TREE:
+        return _no_kernels(tree.build_tree_reduce(comm, root, func, dt,
+                                                  arith))
+    if algo == Algorithm.RING:
+        return _no_kernels(ring.build_ring_reduce(comm, root, func, dt,
+                                                  arith))
+    return _no_kernels(primitives.build_reduce(comm, root, func, dt, arith))
+
+
+def build_alltoall(comm, algo: Algorithm) -> Callable:
+    """Not ported yet: every family raises ``COLLECTIVE_NOT_IMPLEMENTED``."""
+    raise _not_ported(operation.alltoall, algo)

@@ -1,36 +1,54 @@
-"""Segmented ring reduce-scatter and all-gather (counterpart:
-``accl_tpu/parallel/pallas_chunked.py``), the path above
-``pallas_ring.VMEM_PAYLOAD_THRESHOLD`` staged bytes, up to 1 GiB per rank.
+"""Segmented ring collectives (counterpart:
+``accl_tpu/parallel/pallas_chunked.py``): the reduce-scatter and all-gather
+above ``pallas_ring.VMEM_PAYLOAD_THRESHOLD`` staged bytes, up to 1 GiB per
+rank, and the rooted relays of bcast, scatter, gather and reduce.
 
-Each chunk is cut into C segments of ``_geometry``'s size; segment c rides
-channel c%2. Two kernels, each with its plain PyTorch version, a launch
-counter and a wrapper (plain version on CPU tensors, the CUDA kernel on
-CUDA tensors, no fallback):
+Each chunk is cut into C segments of ``_geometry``'s size. Five kernels,
+each with its plain PyTorch version, a launch counter and a wrapper (plain
+version on CPU tensors, the CUDA kernel on CUDA tensors, no fallback):
 
 * :func:`chunked_reduce_scatter` replaces
   ``pallas_chunked.py:_chunked_rs_kernel``: per segment the ring
-  reduce-scatter of :func:`.pallas_ring.ring_reduce_scatter`. With
-  ``bidirectional`` channel 1 rotates left, so its segments end owning chunk
-  (r-1)%P, folded in the other direction round the ring. Kernel:
-  ``csrc/ring.cu:chunked_rs_kernel``.
+  reduce-scatter of :func:`.pallas_ring.ring_reduce_scatter`; segment c
+  rides channel c%2. With ``bidirectional`` channel 1 rotates left, so its
+  segments end owning chunk (r-1)%P, folded in the other direction round
+  the ring. Kernel: ``csrc/ring.cu:chunked_rs_kernel``.
 * :func:`chunked_allgather` replaces ``pallas_chunked.py:_chunked_ag_kernel``;
   the output does not depend on the direction. Kernel:
   ``csrc/ring.cu:chunked_ag_kernel``.
+* :func:`chunked_bcast` replaces ``_chunked_bcast_kernel``: the root's
+  segments move one ring position per hop, pipelined. Kernel:
+  ``bcast_relay_kernel``.
+* :func:`chunked_scatter` replaces ``_chunked_scatter_kernel``: the root
+  streams the blocks of positions 1..P-1; each rank keeps the first C
+  segments that reach it and forwards the rest through two staging slots.
+  Kernel: ``scatter_relay_kernel``.
+* :func:`chunked_gather` replaces ``_chunked_gather_kernel``: each rank
+  sends its own block, then relays what reaches it from upstream, toward
+  the root. Kernel: ``gather_relay_kernel``.
 
-Both are bound by device memory bandwidth. On the card the two channels are
-separate CTA groups that run at once, each with its own two staging slots
-and flag words; the credit chain runs over a channel's global step counter
-across segment boundaries, as on the TPU.
+All are bound by device memory bandwidth. On the card the reduce-scatter's
+and all-gather's two channels are separate CTA groups that run at once,
+each with its own two staging slots and flag words; the credit chain runs
+over a channel's global step counter across segment boundaries, as on the
+TPU. The relays are pure transport, run in the wire dtype: one channel,
+readiness words per segment, and (scatter only) credits on the two slots.
 
 The bodies keep the JAX package's host-side policy: the stride padding of
 each chunk into the uniform (P, C, S) grid, the per-parity realignment for
-bidirectional rings and the wire policy.
+bidirectional rings, the wire policy, and what a rooted body keeps exact
+(the root's own payload, block or partial never rides the wire) or passes
+through (non-root rows of gather and reduce keep the receive buffer).
 """
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
-from ..constants import reduceFunction
+from .. import constants, cuda_build
+from ..communicator import Communicator
+from ..constants import dataType, reduceFunction
 from . import pallas_ring as _pr
 from .pallas_ring import _LANES, _itemsize, _sublane
 
@@ -63,14 +81,16 @@ def plain_chunked_reduce_scatter(x: torch.Tensor, func: reduceFunction,
                                  bidirectional: bool = False) -> torch.Tensor:
     """x (P, P, C, S): rank r's chunk grid -> (P, C, S): rank r's folded
     segments of chunk (r+1)%P (odd segments of chunk (r-1)%P when
-    ``bidirectional``), in the kernel's fold order."""
+    ``bidirectional``), in the kernel's fold order; an int8 wire's SUM
+    rounds each dequantize-and-add once, as the TPU kernel does."""
     if x.shape[0] == 1:
         return x[:, 0].clone()
     if not bidirectional or x.shape[2] == 1:
-        return _pr._plain_rs(x, func, wire, 1)
+        return _pr._plain_rs(x, func, wire, 1, contract=True)
     out = torch.empty_like(x[:, 0])
-    out[:, 0::2] = _pr._plain_rs(x[:, :, 0::2], func, wire, 1)
-    out[:, 1::2] = _pr._plain_rs(x[:, :, 1::2], func, wire, -1)
+    out[:, 0::2] = _pr._plain_rs(x[:, :, 0::2], func, wire, 1, contract=True)
+    out[:, 1::2] = _pr._plain_rs(x[:, :, 1::2], func, wire, -1,
+                                 contract=True)
     return out
 
 
@@ -120,6 +140,124 @@ chunked_allgather.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# kernels 8, 9 and 11: the rooted relays (_chunked_bcast_kernel,
+# _chunked_scatter_kernel, _chunked_gather_kernel)
+# ---------------------------------------------------------------------------
+
+#: the relays' kernel kinds (``KIND_*`` of csrc/ring.cu)
+_BCAST, _SCATTER, _GATHER = 2, 3, 4
+
+
+def _launch_relay(kind: int, x: torch.Tensor, root: int, out_shape,
+                  what: str):
+    """Enqueue one rooted relay on the card; x's rows are the ranks'
+    inputs. Returns (out, flags); the caller checks the flags' error
+    word."""
+    P = x.shape[0]
+    C, S = out_shape[-2], out_shape[-1]
+    _pr._check_cuda(x, what)
+    if not 0 <= root < P:
+        raise ValueError(f"{what}: root {root} outside ranks 0..{P - 1}")
+    lib = cuda_build.load()
+    size = _itemsize(x.dtype)
+    dev = x.device
+    B = _pr._grid(lib, kind, 1, size, 0, P, 1, S, dev)
+    out = torch.empty(out_shape, dtype=x.dtype, device=dev)
+    stage = None
+    nflags = P * B + 1
+    if kind == _SCATTER:
+        stage = torch.empty((P, 2, S), dtype=x.dtype, device=dev)
+        nflags = 2 * P * B * 2 + 1
+    flags = torch.zeros(nflags, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.accl_ring_relay(
+            kind, size, cuda_build.pointer_table(x),
+            cuda_build.pointer_table(out),
+            cuda_build.pointer_table(stage) if stage is not None else None,
+            flags.data_ptr(), P, C, S, B, root, _pr.SPIN_TIMEOUT_S,
+            cuda_build.stream_handle(dev))
+    cuda_build.check(lib, rc, what)
+    return out, flags
+
+
+def plain_chunked_bcast(x: torch.Tensor, root: int) -> torch.Tensor:
+    """x (P, C, S): the ranks' inputs, of which the root's is read -> (P, C,
+    S): every row the root's payload. The kernel leaves row ``root``
+    unwritten (the body keeps the root's input there)."""
+    return x[root].expand_as(x).clone()
+
+
+def chunked_bcast(x: torch.Tensor, root: int, errors=None) -> torch.Tensor:
+    """Kernel 8 (replaces ``pallas_chunked.py:_chunked_bcast_kernel``). Same
+    contract as :func:`plain_chunked_bcast`; ``errors`` as in
+    :mod:`.pallas_ring`."""
+    if x.device.type != "cuda":
+        return plain_chunked_bcast(x, root)
+    if x.shape[0] == 1:
+        return x.clone()
+    out, flags = _launch_relay(_BCAST, x, root, x.shape,
+                               "bcast_relay_kernel")
+    chunked_bcast.launches += 1
+    _pr._note_error_word(flags, "bcast_relay_kernel", errors)
+    return out
+
+
+chunked_bcast.launches = 0
+
+
+def plain_chunked_scatter(x: torch.Tensor, root: int) -> torch.Tensor:
+    """x (P, P, C, S): the ranks' inputs, of which the root's P blocks (by
+    destination rank) are read -> (P, C, S): row r the root's block r. The
+    kernel leaves row ``root`` unwritten (the body keeps the root's own
+    block)."""
+    return x[root].clone()
+
+
+def chunked_scatter(x: torch.Tensor, root: int, errors=None) -> torch.Tensor:
+    """Kernel 9 (replaces ``pallas_chunked.py:_chunked_scatter_kernel``).
+    Same contract as :func:`plain_chunked_scatter`."""
+    if x.device.type != "cuda":
+        return plain_chunked_scatter(x, root)
+    P, _, C, S = x.shape
+    if P == 1:
+        return x[root].clone()
+    out, flags = _launch_relay(_SCATTER, x, root, (P, C, S),
+                               "scatter_relay_kernel")
+    chunked_scatter.launches += 1
+    _pr._note_error_word(flags, "scatter_relay_kernel", errors)
+    return out
+
+
+chunked_scatter.launches = 0
+
+
+def plain_chunked_gather(x: torch.Tensor, root: int) -> torch.Tensor:
+    """x (P, C, S): rank r's block -> (P, C, S): what the root gathers, slot
+    j rank j's block. The kernel leaves slot ``root`` unwritten (the body
+    inserts the root's own block)."""
+    return x.clone()
+
+
+def chunked_gather(x: torch.Tensor, root: int, errors=None) -> torch.Tensor:
+    """Kernel 11 (replaces ``pallas_chunked.py:_chunked_gather_kernel``).
+    Same contract as :func:`plain_chunked_gather`: the other ranks' rows of
+    the kernel's (P, P, C, S) output are its relay store, not returned."""
+    if x.device.type != "cuda":
+        return plain_chunked_gather(x, root)
+    P, C, S = x.shape
+    if P == 1:
+        return x.clone()
+    out, flags = _launch_relay(_GATHER, x, root, (P, P, C, S),
+                               "gather_relay_kernel")
+    chunked_gather.launches += 1
+    _pr._note_error_word(flags, "gather_relay_kernel", errors)
+    return out[root]
+
+
+chunked_gather.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # bodies: padding, realignment
 # ---------------------------------------------------------------------------
 
@@ -160,7 +298,7 @@ def chunked_rs_body(x, *, P: int, func: reduceFunction, dtype,
     even segments one hop forward, odd segments one hop back."""
     n = x.shape[-1] // P
     if P == 1:
-        return x[:, :n].to(dtype).to(x.dtype)
+        return x[:, :n].clone().to(dtype).to(x.dtype)
     C, _, seg_elems = _geometry(n, dtype, segment_bytes)
     grid = torch.zeros((P, P, C * seg_elems), dtype=dtype, device=x.device)
     grid[:, :, :n] = x.reshape(P, P, n)
@@ -225,3 +363,212 @@ def chunked_ar_body(x, *, P: int, func: reduceFunction, dtype,
         _roll_into(ordered, gathered, 1, 1)
     blocks = ordered.view(P, P, per)[:, :, :chunk]
     return blocks.reshape(P, P * chunk)[:, :n].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rooted bodies and builders
+# ---------------------------------------------------------------------------
+
+def _root_grid(x, *, P: int, root: int, blocks: int, n: int, per: int, dtype,
+               wire):
+    """The relays' input grid (P, blocks, per), of which the relays read row
+    ``root`` only: the root's ``blocks`` blocks of ``n`` elements, in the
+    kernel dtype (``wire``'s, else ``dtype``), each zero-padded to ``per``.
+    A payload already in that form is a view; otherwise the other rows are
+    left unset."""
+    if wire is None and n == per and x.dtype == dtype and x.is_contiguous():
+        return x.view(P, blocks, per)
+    src = x[root].view(blocks, n)
+    src = _pr._to_wire(src, wire) if wire is not None else src.to(dtype)
+    grid = torch.empty((P, blocks, per), dtype=src.dtype, device=x.device)
+    grid[root, :, :n] = src
+    grid[root, :, n:] = 0
+    return grid
+
+
+def _unwire_to(y, dtype, wire, out_dtype):
+    """A relay's output back from the kernel dtype to ``out_dtype``."""
+    if wire is not None:
+        y = _pr._from_wire(y, dtype, wire)
+    return y.to(out_dtype)
+
+
+def chunked_bcast_body(x, *, P: int, root: int, dtype, segment_bytes: int,
+                       wire=None, errors=None):
+    """(P, n) -> (P, n): every rank gets the root's row. ``wire`` runs the
+    whole relay in the wire dtype (pure transport); the root keeps its
+    input exactly."""
+    n = x.shape[-1]
+    if P == 1:
+        return x
+    kdt = wire[0] if wire is not None else dtype
+    C, _, seg_elems = _geometry(n, kdt, segment_bytes)
+    grid = _root_grid(x, P=P, root=root, blocks=1, n=n, per=C * seg_elems,
+                      dtype=dtype, wire=wire)
+    out = chunked_bcast(grid.view(P, C, seg_elems), root, errors)
+    res = _unwire_to(out.view(P, -1)[:, :n], dtype, wire, x.dtype)
+    res[root] = x[root]
+    return res
+
+
+def chunked_scatter_body(x, *, P: int, root: int, dtype, segment_bytes: int,
+                         wire=None, errors=None):
+    """(P, P*n) -> (P, n): rank r gets block r of the root's row. ``wire``
+    runs every hop in the wire dtype; the root's own block never rides it
+    and stays exact."""
+    n = x.shape[-1] // P
+    if P == 1:
+        return x[:, :n].clone()
+    kdt = wire[0] if wire is not None else dtype
+    C, _, seg_elems = _geometry(n, kdt, segment_bytes)
+    grid = _root_grid(x, P=P, root=root, blocks=P, n=n, per=C * seg_elems,
+                      dtype=dtype, wire=wire)
+    out = chunked_scatter(grid.view(P, P, C, seg_elems), root, errors)
+    mine = _unwire_to(out.view(P, -1)[:, :n], dtype, wire, x.dtype)
+    mine[root] = x[root, root * n:(root + 1) * n]
+    return mine
+
+
+def chunked_gather_body(x, dest, *, P: int, root: int, dtype,
+                        segment_bytes: int, wire=None, errors=None):
+    """(P, n), (P, P*n) -> (P, P*n): the root's row of ``dest`` (the receive
+    buffer, written in place) gets every rank's block in rank order.
+    ``wire`` runs every relay hop in the wire dtype; the root's own block
+    stays exact."""
+    n = x.shape[-1]
+    if P == 1:
+        dest[root] = x[root]
+        return dest
+    kdt = wire[0] if wire is not None else dtype
+    C, _, seg_elems = _geometry(n, kdt, segment_bytes)
+    per = C * seg_elems
+    xin = _pr._to_wire(x, wire) if wire is not None else x.to(dtype)
+    if n == per and xin.is_contiguous():
+        padded = xin.view(P, C, seg_elems)
+    else:
+        padded = torch.zeros((P, per), dtype=kdt, device=x.device)
+        padded[:, :n] = xin
+        padded = padded.view(P, C, seg_elems)
+    got = chunked_gather(padded, root, errors)
+    flat = _unwire_to(got.reshape(P, per)[:, :n], dtype, wire, x.dtype)
+    flat[root] = x[root]
+    dest[root] = flat.reshape(-1)
+    return dest
+
+
+def chunked_reduce_body(x, *, P: int, root: int, func: reduceFunction,
+                        dtype, segment_bytes: int, wire=None,
+                        gather_wire=None, errors=None):
+    """(P, n) -> (n,): the segmented ring reduce-scatter, then the relay
+    gather of the folded chunks to the root: the root's result, in
+    ``dtype``. ``wire`` compresses the reduce-scatter hops (full-precision
+    fold), ``gather_wire`` the relay hops (pure transport); the root's own
+    partial never rides the wire."""
+    n = x.shape[-1]
+    if P == 1:
+        return x[root].to(dtype)
+    chunk = -(-n // P)
+    C, _, seg_elems = _geometry(chunk, dtype, segment_bytes)
+    grid = _pack_chunks(x, P=P, chunk=chunk, C=C, seg_elems=seg_elems,
+                        dtype=dtype)
+    partial = chunked_reduce_scatter(grid, func, wire, False, errors)
+    # the reduce-scatter's (P, C, S) output is the gather's input geometry
+    if gather_wire is not None:
+        gath = _pr._from_wire(
+            chunked_gather(_pr._to_wire(partial, gather_wire), root, errors),
+            dtype, gather_wire)
+    else:
+        gath = chunked_gather(partial, root, errors)
+    blocks = gath.reshape(P, -1)[:, :chunk]          # by source rank
+    blocks[root] = partial[root].reshape(-1)[:chunk]
+    # source rank r folded chunk (r+1)%P: roll so slot c holds chunk c
+    return torch.roll(blocks, 1, dims=0).reshape(-1)[:n]
+
+
+def _transport_wire(arith):
+    """(wire torch dtype, int8 scale or None) of a compressing arith config,
+    else None: the relays carry the wire dtype end to end."""
+    if arith is None or not arith.is_compressing:
+        return None
+    return (constants.to_torch_dtype(arith.compressed), arith.quant_scale)
+
+
+def build_chunked_ring_bcast(comm: Communicator, root: int, dt: dataType,
+                             segment_bytes=None, arith=None) -> Callable:
+    """(world, n) -> (world, n): pipelined ring broadcast. A compressing
+    ``arith`` compresses every hop (pure transport). ``prog(x,
+    errors=None)``, as every builder of :mod:`.pallas_ring`."""
+    P = comm.world_size
+    dtype = constants.to_torch_dtype(dt)
+    seg = segment_bytes or constants.DEFAULT_SEGMENT_SIZE
+    wire = _transport_wire(arith)
+
+    def prog(x, errors=None):
+        return chunked_bcast_body(x, P=P, root=root, dtype=dtype,
+                                  segment_bytes=seg, wire=wire, errors=errors)
+
+    return prog
+
+
+def build_chunked_ring_scatter(comm: Communicator, root: int, dt: dataType,
+                               segment_bytes=None, arith=None) -> Callable:
+    """(world, world*n) -> (world, n): ring-relay scatter. A compressing
+    ``arith`` compresses every hop (pure transport)."""
+    P = comm.world_size
+    dtype = constants.to_torch_dtype(dt)
+    seg = segment_bytes or constants.DEFAULT_SEGMENT_SIZE
+    wire = _transport_wire(arith)
+
+    def prog(x, errors=None):
+        return chunked_scatter_body(x, P=P, root=root, dtype=dtype,
+                                    segment_bytes=seg, wire=wire,
+                                    errors=errors)
+
+    return prog
+
+
+def build_chunked_ring_gather(comm: Communicator, root: int, dt: dataType,
+                              segment_bytes=None, arith=None) -> Callable:
+    """(world, n), (world, world*n) -> (world, world*n): ring-relay gather
+    into the root's row of ``dest`` (written in place); ``prog(x, dest,
+    errors=None)``. A compressing ``arith`` compresses every hop (pure
+    transport)."""
+    P = comm.world_size
+    dtype = constants.to_torch_dtype(dt)
+    seg = segment_bytes or constants.DEFAULT_SEGMENT_SIZE
+    wire = _transport_wire(arith)
+
+    def prog(x, dest, errors=None):
+        return chunked_gather_body(x, dest, P=P, root=root, dtype=dtype,
+                                   segment_bytes=seg, wire=wire,
+                                   errors=errors)
+
+    return prog
+
+
+def build_chunked_ring_reduce(comm: Communicator, root: int,
+                              func: reduceFunction, dt: dataType,
+                              segment_bytes=None, arith=None) -> Callable:
+    """(world, n), (world, n) -> (world, n): segmented reduce-scatter then
+    relay gather into the root's row of ``dest`` (written in place);
+    ``prog(x, dest, errors=None)``. A compressing ``arith``
+    compresses every hop of both phases, except that a kernel already
+    running in the wire dtype (an ``arith_is_compressed`` pair) is not
+    compressed again for the gather (a quantized scale would apply
+    twice)."""
+    P = comm.world_size
+    dtype = constants.to_torch_dtype(dt)
+    seg = segment_bytes or constants.DEFAULT_SEGMENT_SIZE
+    kdtype, wire, pre, post = _pr._wire_policy(arith, dtype)
+    gather_wire = _transport_wire(arith)
+    if gather_wire is not None and gather_wire[0] == kdtype:
+        gather_wire = None
+
+    def prog(x, dest, errors=None):
+        out = chunked_reduce_body(pre(x), P=P, root=root, func=func,
+                                  dtype=kdtype, segment_bytes=seg, wire=wire,
+                                  gather_wire=gather_wire, errors=errors)
+        dest[root] = post(out, x.dtype)
+        return dest
+
+    return prog

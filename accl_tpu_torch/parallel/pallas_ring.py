@@ -48,7 +48,7 @@ import torch
 from .. import constants, cuda_build
 from ..communicator import Communicator
 from ..constants import ACCLError, dataType, errorCode, reduceFunction
-from ..ops.registry import dequantize, maximum, quantize
+from ..ops.registry import add_dequantized, dequantize, maximum, quantize
 
 _LANES = 128
 
@@ -239,20 +239,29 @@ def _launch_ag(chunked: int, x: torch.Tensor, bidirectional: bool):
 # kernel 4: ring reduce-scatter (_rs_kernel)
 # ---------------------------------------------------------------------------
 
-def _plain_rs(chunks, func: reduceFunction, wire, d: int):
+def _plain_rs(chunks, func: reduceFunction, wire, d: int,
+              contract: bool = False):
     """The ring reduce-scatter schedule on a (P, P, ...) stack of every
-    rank's chunks, rotating by ``d`` (+1: send right)."""
+    rank's chunks, rotating by ``d`` (+1: send right). ``contract``: an
+    int8 SUM folds its dequantize-and-add with one rounding, as XLA
+    compiles the segmented TPU kernel (a fused multiply-add); the
+    VMEM-range kernel rounds the product and the sum apart."""
     P = chunks.shape[0]
     ranks = torch.arange(P, device=chunks.device)
     send = chunks[ranks, ranks]
     if wire is not None:
         send = _to_wire(send, wire)
+    fma = contract and func == reduceFunction.SUM and wire is not None \
+        and wire[1] is not None
     for s in range(P - 1):
         recv = torch.roll(send, d, dims=0)        # from rank r - d
-        if wire is not None:
-            recv = _from_wire(recv, chunks.dtype, wire)
-        folded = _combine(recv, chunks[ranks, (ranks - d * (s + 1)) % P],
-                          func)
+        local = chunks[ranks, (ranks - d * (s + 1)) % P]
+        if fma:
+            folded = add_dequantized(local, recv, wire[1])
+        else:
+            if wire is not None:
+                recv = _from_wire(recv, chunks.dtype, wire)
+            folded = _combine(recv, local, func)
         send = folded if wire is None else _to_wire(folded, wire)
     return folded
 

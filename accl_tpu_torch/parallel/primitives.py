@@ -8,11 +8,17 @@ of every rank with plain torch operations, folding in ascending rank
 order (:func:`..ops.registry.reduce_axis0`). Wire compression
 (``ETH_COMPRESSED``) casts to the wire dtype before the exchange and back
 after it, as the JAX programs do; the fold runs in the wire dtype unless
-the arith config decompresses first.
+the arith config decompresses first. The rooted programs (bcast, scatter,
+gather, reduce) and the barrier's zero-payload program are here too; a
+gather or reduce program takes the receive buffer as its second operand,
+writes the root's row of it in place and returns it: every other row keeps
+its content, as the JAX programs' ``where(rank == root, ..., recv)`` does.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional
+
+import torch
 
 from .. import constants, ops
 from ..ops import reduce_ops
@@ -45,13 +51,18 @@ def _quantized(arith: Optional[ArithConfig]) -> bool:
 
 
 def _fold_in(acc, moved, func: reduceFunction, dt: dataType,
-             arith: Optional[ArithConfig]):
+             arith: Optional[ArithConfig], moved_first: bool = False):
     """``combine(acc, unwire(moved))`` for a value ``moved`` that arrived in
-    the wire dtype. A quantized SUM folds as XLA compiles it, one rounding
+    the wire dtype (``combine(unwire(moved), acc)`` with ``moved_first``,
+    the ring reduce's operand order, which MAX's NaN and +-0 rules can
+    see). A quantized SUM folds as XLA compiles it, one rounding
     (:func:`..ops.registry.add_dequantized`)."""
     if func == reduceFunction.SUM and _quantized(arith):
         return ops.registry.add_dequantized(acc, moved, arith.quant_scale)
-    return ops.combine(acc, _unwire(moved, arith, acc.dtype), func, dt)
+    moved = _unwire(moved, arith, acc.dtype)
+    if moved_first:
+        return ops.combine(moved, acc, func, dt)
+    return ops.combine(acc, moved, func, dt)
 
 
 def _fold_wire(stack, func: reduceFunction, dt: dataType,
@@ -64,6 +75,15 @@ def _fold_wire(stack, func: reduceFunction, dt: dataType,
     g = ops.decompress(stack, arith.compressed, arith.uncompressed,
                        arith.quant_scale)
     return ops.reduce_axis0(g, func, dt)
+
+
+def _psum(stack, func: reduceFunction, dt: dataType):
+    """``lax.psum`` / ``pmax`` of a (world, ...) stack as XLA on the CPU
+    computes them: in rank order, a bfloat16 SUM accumulated in float32
+    and rounded once (float16 sums round at every add)."""
+    if func == reduceFunction.SUM and stack.dtype == torch.bfloat16:
+        return ops.reduce_axis0(stack.float(), func, dt).to(torch.bfloat16)
+    return ops.reduce_axis0(stack, func, dt)
 
 
 def _everyone(row, world: int):
@@ -82,7 +102,7 @@ def build_allreduce(comm: Communicator, func: reduceFunction, dt: dataType,
             red = _fold_wire(x, func, dt, arith,
                              constants.to_torch_dtype(arith.uncompressed))
             return _everyone(red.to(send.dtype), world)
-        red = ops.reduce_axis0(x, func, dt)
+        red = _psum(x, func, dt)
         return _everyone(_unwire(red, arith, send.dtype), world)
 
     return prog
@@ -100,8 +120,7 @@ def build_reduce_scatter(comm: Communicator, func: reduceFunction,
         chunks = x.reshape(world, world, -1)   # [source rank, chunk]
         if func == reduceFunction.SUM and (
                 arith is None or not arith.decompress_before_arith):
-            return _unwire(ops.reduce_axis0(chunks, func, dt), arith,
-                           send.dtype)
+            return _unwire(_psum(chunks, func, dt), arith, send.dtype)
         if arith is not None and arith.is_compressing:
             return _fold_wire(chunks, func, dt, arith,
                               constants.to_torch_dtype(
@@ -121,6 +140,83 @@ def build_allgather(comm: Communicator,
         return _everyone(g.reshape(-1), world)
 
     return prog
+
+
+# --------------------------------------------------------------------------
+# rooted collectives
+# --------------------------------------------------------------------------
+
+def _psum_of_root(row, world: int):
+    """The JAX package's masked ``psum`` of the root's row, a new tensor:
+    only the root contributes, every other rank adds zeros, so the sum is
+    the row, except that -0.0 + +0.0 is +0.0."""
+    return row + torch.zeros_like(row) if world > 1 else row.clone()
+
+
+def build_bcast(comm: Communicator, root: int,
+                arith: Optional[ArithConfig] = None) -> Callable:
+    """(world, n) -> (world, n): every rank, the root too, gets the root's
+    row through the wire (the JAX package's masked ``psum``)."""
+    world = comm.world_size
+
+    def prog(x):
+        row = _psum_of_root(_wire(x[root], arith), world)
+        return _everyone(_unwire(row, arith, x.dtype), world)
+
+    return prog
+
+
+def build_scatter(comm: Communicator, root: int,
+                  arith: Optional[ArithConfig] = None) -> Callable:
+    """(world, world*n) -> (world, n): rank r gets block r of the root's row,
+    through the wire (the root's own block too)."""
+    world = comm.world_size
+
+    def prog(send):
+        full = _psum_of_root(_wire(send[root], arith), world)
+        return _unwire(full.view(world, -1), arith, send.dtype)
+
+    return prog
+
+
+def build_gather(comm: Communicator, root: int,
+                 arith: Optional[ArithConfig] = None) -> Callable:
+    """(world, n), (world, world*n) -> (world, world*n): the root's row of
+    ``recv`` gets every rank's block (its own too) through the wire."""
+
+    def prog(send, recv):
+        recv[root] = _unwire(_wire(send, arith), arith,
+                             recv.dtype).reshape(-1)
+        return recv
+
+    return prog
+
+
+def build_reduce(comm: Communicator, root: int, func: reduceFunction,
+                 dt: dataType, arith: Optional[ArithConfig] = None
+                 ) -> Callable:
+    """(world, n), (world, n) -> (world, n): the root's row of ``recv`` gets
+    the fold of every rank's row in rank order. A casting or quantized wire
+    is decompressed before the fold (the JAX package gathers the wire
+    payloads), else the fold runs in the wire dtype."""
+
+    def prog(send, recv):
+        x = _wire(send, arith)
+        if arith is not None and arith.decompress_before_arith:
+            red = _fold_wire(x, func, dt, arith,
+                             constants.to_torch_dtype(arith.uncompressed))
+        else:
+            red = _unwire(_psum(x, func, dt), arith, recv.dtype)
+        recv[root] = red
+        return recv
+
+    return prog
+
+
+def build_barrier(comm: Communicator) -> Callable:
+    """The zero-payload program: a (world,) token in, its sum out (the JAX
+    package's scalar ``psum``)."""
+    return lambda token: token.sum()
 
 
 # --------------------------------------------------------------------------

@@ -1,6 +1,8 @@
 """Explicit ring collectives (counterpart: ``accl_tpu/parallel/ring.py``):
-the ring all-reduce, all-gather and reduce-scatter; the rooted ring builders
-come with the rooted collectives.
+the ring all-reduce, all-gather and reduce-scatter, and the rooted ring
+reduce (a daisy chain root+1 -> root+2 -> ... -> root, each receiver
+folding ``combine(received, own)``), gather (every rank relays toward the
+root, one rank back per hop) and bcast (every rank relays to the next).
 
 The JAX package runs each rank's step of the ring as a ``ppermute`` inside
 ``shard_map``. Here every rank is a row of one ``(world, ...)`` tensor, so
@@ -27,10 +29,11 @@ from ..constants import dataType, reduceFunction
 from .primitives import _fold_in, _unwire, _wire
 
 
-def _hop(buf: torch.Tensor, arith: Optional[ArithConfig]) -> torch.Tensor:
+def _hop(buf: torch.Tensor, arith: Optional[ArithConfig],
+         shift: int = 1) -> torch.Tensor:
     """One ring hop of every rank, returning what arrived in the wire
-    dtype: compress -> rank r's row moves to rank r+1."""
-    return torch.roll(_wire(buf, arith), 1, dims=0)
+    dtype: compress -> rank r's row moves to rank r+shift."""
+    return torch.roll(_wire(buf, arith), shift, dims=0)
 
 
 def _pick(ch: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -110,5 +113,62 @@ def build_ring_reduce_scatter(comm: Communicator, func: reduceFunction,
             _put(chunks, recv_idx,
                  _fold_in(_pick(chunks, recv_idx), moved, func, dt, arith))
         return _pick(chunks, rank)
+
+    return prog
+
+
+def build_ring_reduce(comm: Communicator, root: int, func: reduceFunction,
+                      dt: dataType,
+                      arith: Optional[ArithConfig] = None) -> Callable:
+    """(world, n), (world, n) -> (world, n): the partial travels root+1 ->
+    root+2 -> ... -> root, P-1 full-row hops; the root's row of ``dest``
+    gets the fold."""
+    world = comm.world_size
+
+    def prog(x, dest):
+        acc = x.clone()
+        for s in range(world - 1):
+            src, dst = (root + s + 1) % world, (root + s + 2) % world
+            acc[dst] = _fold_in(acc[dst], _wire(acc[src], arith), func, dt,
+                                arith, moved_first=True)
+        dest[root] = acc[root]
+        return dest
+
+    return prog
+
+
+def build_ring_gather(comm: Communicator, root: int,
+                      arith: Optional[ArithConfig] = None) -> Callable:
+    """(world, n), (world, world*n) -> (world, world*n): every rank sends its
+    block one rank back (toward the root) and relays what it received, so
+    rank root+s's block reaches the root after s hops, through the wire at
+    each, into the root's row of ``dest``; the root's own block stays
+    exact."""
+    world = comm.world_size
+
+    def prog(x, dest):
+        slots = dest[root].view(world, -1)
+        slots[root] = x[root]
+        buf = x
+        for s in range(1, world):
+            buf = _unwire(_hop(buf, arith, -1), arith, x.dtype)
+            slots[(root + s) % world] = buf[root]
+        return dest
+
+    return prog
+
+
+def build_ring_bcast(comm: Communicator, root: int,
+                     arith: Optional[ArithConfig] = None) -> Callable:
+    """(world, n) -> (world, n): rank root+s receives from root+s-1 at hop
+    s, through the wire; the root keeps its row exactly."""
+    world = comm.world_size
+
+    def prog(x):
+        buf = x.clone()
+        for s in range(world - 1):
+            src, dst = (root + s) % world, (root + s + 1) % world
+            buf[dst] = _unwire(_wire(buf[src], arith), arith, buf.dtype)
+        return buf
 
     return prog

@@ -10,12 +10,14 @@ any failure exits non-zero and nothing is caught and skipped:
 2. hold every kernel against its plain PyTorch version on the card, bit
    for bit (``torch.equal``, or the raw bits where NaN can occur): the four
    ring kernels (P in {2, 8}, a ragged length, SUM and MAX, f32 / i32 /
-   bf16, a bf16 and an int8 wire, both ring directions, MAX on +-0 / NaN)
-   and the three plugin kernels (combine in f32 / bf16 / f16 / i32, SUM and
+   bf16, a bf16 and an int8 wire, both ring directions, MAX on +-0 / NaN),
+   the three plugin kernels (combine in f32 / bf16 / f16 / i32, SUM and
    MAX, with and without donate; the four casts; stochastic rounding with
    three seeds and per-row seeds; NaN, +-0, inf, subnormal and overflow
-   cases), then time each kernel, its plain version and a one-call PyTorch
-   yardstick at the shapes of the main path;
+   cases) and the three rooted relays (P in {2, 8}, roots 0, P-1 and a
+   middle rank, one and three segments of a ragged length, 1-, 2- and
+   4-byte elements with NaN and +-0), then time each kernel, its plain
+   version and a one-call PyTorch yardstick at the shapes of the main path;
 3. the main path, each part with every launch counter set to 0 just
    before it and read just after:
    a. ``ACCL(world=8)`` runs AUTO all-reduce, f32 SUM, from 4 B to 1 GiB
@@ -31,6 +33,17 @@ any failure exits non-zero and nothing is caught and skipped:
       DCN wire "off", "bf16" and "bf16_sr"; every result is checked
       against a float64 fold, and the counters must show the combine,
       cast and stochastic-round kernels;
+   c. the rooted collectives at world 8: AUTO ``bcast``, ``scatter``,
+      ``gather`` and ``reduce`` (f32 SUM) over a size ladder (4 B, 64 KiB,
+      4 MiB, 16 MiB and the full size: 1 GiB per rank for bcast and
+      reduce, the root's 1 GiB for scatter, 128 MiB per rank for gather),
+      where the counters must show the relay kernels (and the segmented
+      reduce-scatter for reduce) from 8 MiB up and none below; explicit
+      XLA / FLAT / TREE / RING at 64 MiB per rank wherever the op has the
+      family; a bf16 wire through PALLAS bcast and reduce at 64 MiB.
+      Bcast, scatter and gather are checked exactly, reduce against the
+      f32 fold bound (plus the bf16 wire's roundings), and every non-root
+      receive row must keep its pre-filled pattern; ``barrier`` closes it;
 4. print the ``kernels`` line, the card line and, last, the device line.
 
 Exits 2 without printing a result when no CUDA device is visible.
@@ -38,6 +51,7 @@ Exits 2 without printing a result when no CUDA device is visible.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -258,6 +272,42 @@ def check_plugin_kernels(gen) -> None:
     log(f"phase 2: {n_cases} plugin kernel-vs-plain cases bit-equal")
 
 
+def check_relay_kernels(gen) -> None:
+    """The three rooted relays against their plain versions, by bits: P in
+    {2, 8}, roots 0, P-1 and a middle rank, one and three segments of a
+    ragged length, int8 / bf16 / f32 (random data with NaN, -NaN, +-0, inf
+    and subnormals). The rows a relay leaves unwritten, the root's, are not
+    compared."""
+    import torch
+    from accl_tpu_torch.parallel import pallas_chunked as pc
+
+    def data(shape, dt):
+        x = specials(math.prod(shape), gen).view(*shape)
+        return (x * 50).to(dt) if dt == torch.int8 else x.to(dt)
+
+    n_cases, S = 0, 1000
+    for P in (2, 8):
+        for root in sorted({0, P // 2, P - 1}):
+            keep = [r for r in range(P) if r != root]
+            for dt in (torch.int8, torch.bfloat16, torch.float32):
+                for C in (1, 3):
+                    x, xs = data((P, C, S), dt), data((P, P, C, S), dt)
+                    for name, got, want in (
+                            ("bcast_relay_kernel", pc.chunked_bcast(x, root),
+                             pc.plain_chunked_bcast(x, root)),
+                            ("scatter_relay_kernel",
+                             pc.chunked_scatter(xs, root),
+                             pc.plain_chunked_scatter(xs, root)),
+                            ("gather_relay_kernel", pc.chunked_gather(x, root),
+                             pc.plain_chunked_gather(x, root))):
+                        if not same_bits(got[keep], want[keep]):
+                            fail(f"{name} != plain (P={P} root={root} {dt} "
+                                 f"C={C})")
+                        n_cases += 1
+    torch.cuda.synchronize()
+    log(f"phase 2: {n_cases} relay kernel-vs-plain cases bit-equal")
+
+
 def measure_kernels(gen, big_ok: bool) -> dict:
     """Each kernel at its main-path shape (f32 SUM, P=8): the 4 MiB
     all-reduce for the VMEM-range pair, the 1 GiB one (or the largest that
@@ -418,6 +468,90 @@ def measure_plugin_kernels(gen) -> dict:
     return res
 
 
+def measure_relay_kernels(gen, big_ok: bool) -> dict:
+    """The relays at the main path's shapes, f32, P=8, root 3, 1 MiB
+    segments: the bcast of 1 GiB per rank, the scatter of the root's 1 GiB
+    and the gather of 128 MiB per rank (a quarter of each when the card
+    has less than 60 GiB). Bounds, n the elements of a bcast row or of one
+    block: the function moves P n words for a bcast (the root's row read
+    once, P-1 rows written) and 2 (P-1) n for a scatter or gather; the
+    relays' own traffic is 2 (P-1) n (bcast) and P (P-1) n (a block
+    crosses one hop per position between its rank and the root, read and
+    written at each)."""
+    import torch
+    from accl_tpu_torch.parallel import pallas_chunked as pc
+
+    P, root = 8, 3
+    keep = [r for r in range(P) if r != root]
+    S = MIB // 4
+    per_rank = GIB if big_ok else 256 * MIB
+    res = {}
+
+    def record(name, got, want, x, fn_kernel, fn_plain, fn_lib, words,
+               ring_words, iters):
+        err = 0.0
+        for r in keep:                    # row by row: 1 GiB rows
+            if not torch.equal(got[r], want[r]):
+                fail(f"{name} != plain at the main-path shape "
+                     f"{tuple(x.shape)} (row {r})")
+            err = max(err, (got[r] - want[r]).abs().max().item())
+        del got, want
+        res[name] = {
+            "shape": list(x.shape), "max_abs_err": err,
+            "ms": time_ms(fn_kernel, iters),
+            "plain_ms": time_ms(fn_plain, iters),
+            "library_ms": time_ms(fn_lib, iters),
+            "bound_ms": words * 4 / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "ring_bound_ms": ring_words * 4 / HBM_BYTES_PER_S * 1e3,
+        }
+        r = res[name]
+        log(f"  {name} {tuple(x.shape)}: kernel {r['ms']!r} ms, plain "
+            f"{r['plain_ms']!r} ms, library {r['library_ms']!r} ms, bound "
+            f"{r['bound_ms']!r} ms, ring bound {r['ring_bound_ms']!r} ms, "
+            f"max_abs_err {err!r}")
+
+    # bcast: every rank's (C, S) row, the root's read
+    x = torch.randn((P, per_rank // 4 // S, S), generator=gen, device="cuda")
+    n = x[0].numel()
+    record("bcast_relay_kernel", pc.chunked_bcast(x, root),
+           pc.plain_chunked_bcast(x, root), x,
+           lambda: pc._launch_relay(pc._BCAST, x, root, x.shape,
+                                    "bcast_relay_kernel"),
+           lambda: pc.plain_chunked_bcast(x, root),
+           lambda: x[root].view(-1).expand(P, n).clone(),
+           P * n, 2 * (P - 1) * n, 3)
+    del x
+    torch.cuda.empty_cache()
+
+    # scatter: the root's P blocks of per_rank / P bytes
+    blk = per_rank // P // 4 // S
+    x = torch.randn((P, P, blk, S), generator=gen, device="cuda")
+    n = blk * S
+    record("scatter_relay_kernel", pc.chunked_scatter(x, root),
+           pc.plain_chunked_scatter(x, root), x,
+           lambda: pc._launch_relay(pc._SCATTER, x, root, (P, blk, S),
+                                    "scatter_relay_kernel"),
+           lambda: pc.plain_chunked_scatter(x, root),
+           lambda: x[root].view(P, n).clone(),
+           2 * (P - 1) * n, P * (P - 1) * n, 3)
+    del x
+    torch.cuda.empty_cache()
+
+    # gather: every rank's block of per_rank / P bytes
+    x = torch.randn((P, blk, S), generator=gen, device="cuda")
+    record("gather_relay_kernel", pc.chunked_gather(x, root),
+           pc.plain_chunked_gather(x, root), x,
+           lambda: pc._launch_relay(pc._GATHER, x, root, (P, P, blk, S),
+                                    "gather_relay_kernel"),
+           lambda: pc.plain_chunked_gather(x, root),
+           lambda: x.reshape(-1).clone(),
+           2 * (P - 1) * n, P * (P - 1) * n, 3)
+    del x
+    torch.cuda.empty_cache()
+    return res
+
+
 #: 32-bit integer operations of ``sr_kernel`` per element: the index
 #: multiply, xor, the hash's three xor-shifts and two multiplies, the
 #: NaN test (and, compare), the add, mask and shift of the rounding
@@ -440,7 +574,10 @@ def wrappers() -> dict:
             "chunked_ag_kernel": pc.chunked_allgather,
             "combine_kernel": ro.pallas_combine,
             "cast_kernel": cp.pallas_cast,
-            "sr_kernel": cp.pallas_compress_stochastic}
+            "sr_kernel": cp.pallas_compress_stochastic,
+            "bcast_relay_kernel": pc.chunked_bcast,
+            "scatter_relay_kernel": pc.chunked_scatter,
+            "gather_relay_kernel": pc.chunked_gather}
 
 
 def counts() -> dict:
@@ -715,6 +852,142 @@ def check_gather(y, x, wire: str) -> float:
     return worst
 
 
+#: the root of each rooted op in phase 3c
+ROOT = {"bcast": 0, "scatter": 7, "gather": 3, "reduce": 5}
+#: the relay kernels each rooted op's PALLAS program launches
+RELAYS = {"bcast": ("bcast_relay_kernel",),
+          "scatter": ("scatter_relay_kernel",),
+          "gather": ("gather_relay_kernel",),
+          "reduce": ("chunked_rs_kernel", "gather_relay_kernel")}
+
+
+def rooted_paths(gen, big_ok: bool) -> dict:
+    """Phase 3c: bcast, scatter, gather and reduce (f32 SUM) at world 8
+    through the host API, payloads generated and kept on the card. Sizes
+    are per rank: a bcast's or reduce's payload, a scatter's or gather's
+    block (the selection bytes of each op). Non-root receive rows are
+    pre-filled with -(r+1)/2 and must keep it. Returns the launch counts of
+    this part."""
+    import torch
+    from accl_tpu_torch import ACCL, Algorithm, dataType, operation, \
+        reduceFunction as F
+    from accl_tpu_torch.parallel import algorithms
+
+    P = 8
+    f32 = dataType.float32
+    acc = ACCL(world=P)
+    reset_counts()
+
+    def buf(count, x):
+        b = acc.create_buffer(count, f32)
+        b.device_store(x)
+        return b
+
+    def rand(count):
+        return torch.randn((P, count), generator=gen, device="cuda")
+
+    def pattern(count):
+        return (-0.5 * torch.arange(1, P + 1, device="cuda",
+                                    dtype=torch.float32)) \
+            .view(P, 1).expand(P, count).contiguous()
+
+    def kept_pattern(y, root, what):
+        for r in range(P):
+            if r != root and not bool((y[r] == -0.5 * (r + 1)).all()):
+                fail(f"{what}: non-root rank {r}'s receive row changed")
+
+    def run(op, nbytes, algo=None, wire=None, iters=3):
+        """One call shape: p50, resolved family, fired launches, max|err|."""
+        count = nbytes // 4
+        root = ROOT[op]
+        kw = {"from_device": True, "to_device": True}
+        if algo is not None:
+            kw["algorithm"] = algo
+        if wire is not None:
+            kw["compress_dtype"] = dataType.bfloat16
+        c0 = counts()
+        err = 0.0
+        if op == "bcast":
+            b = buf(count, rand(count))
+            ref = b.data[root].clone()
+            p50 = p50_call(lambda: acc.bcast(b, count, root, **kw), iters)
+            peer = ref if wire is None else ref.to(torch.bfloat16).float()
+            for r in range(P):
+                if not torch.equal(b.data[r], ref if r == root else peer):
+                    fail(f"bcast {nbytes} B {algo} {wire}: rank {r} wrong")
+                err = max(err, (b.data[r] - ref).abs().max().item())
+            del b, ref, peer
+        elif op == "scatter":
+            s, r_ = buf(count * P, rand(count * P)), buf(count, rand(count))
+            p50 = p50_call(lambda: acc.scatter(s, r_, count, root, **kw),
+                           iters)
+            if not torch.equal(r_.data, s.data[root].view(P, count)):
+                fail(f"scatter {nbytes} B {algo}: wrong blocks")
+            del s, r_
+        elif op == "gather":
+            s, r_ = buf(count, rand(count)), buf(count * P, pattern(count * P))
+            p50 = p50_call(lambda: acc.gather(s, r_, count, root, **kw),
+                           iters)
+            if not torch.equal(r_.data[root], s.data.reshape(-1)):
+                fail(f"gather {nbytes} B {algo}: wrong blocks at the root")
+            kept_pattern(r_.data, root, f"gather {nbytes} B {algo}")
+            del s, r_
+        else:
+            s, r_ = buf(count, rand(count)), buf(count, pattern(count))
+            p50 = p50_call(lambda: acc.reduce(s, r_, count, root, F.SUM,
+                                              **kw), iters)
+            # the f32 fold bound, plus a bf16 wire's roundings: one per
+            # reduce-scatter hop and one on the gather (2^-9 each)
+            ulps = 0.0 if wire is None else (P + 1) * 2.0 ** -9
+            err = check_fold(r_.data[root:root + 1], s.data.view(P, 1, count),
+                             ulps, f"reduce {nbytes} B {algo} {wire}")
+            kept_pattern(r_.data, root, f"reduce {nbytes} B {algo}")
+            del s, r_
+        torch.cuda.empty_cache()
+        resolved = algorithms.select(operation[op], nbytes, acc.comms[0],
+                                     acc.config, algo, count=count).value
+        c = counts()
+        fired = {k: c[k] - c0[k] for k in c if c[k] - c0[k]}
+        log(f"{op} {nbytes} B/rank root {root}"
+            + (f" wire {wire}" if wire else "")
+            + f": p50 {p50 * 1e6!r} us, algorithm {resolved}, launches "
+            f"{json.dumps(fired)}, max|err| {err!r}")
+        return resolved, fired
+
+    full = {"bcast": GIB, "reduce": GIB, "scatter": GIB // P,
+            "gather": GIB // P}
+    if not big_ok:
+        full = {k: v // 4 for k, v in full.items()}
+    for op in ("bcast", "scatter", "gather", "reduce"):
+        for nbytes in (4, 64 * 1024, 4 * MIB, 16 * MIB, full[op]):
+            iters = 10 if nbytes <= 4 * MIB else (5 if nbytes <= 64 * MIB
+                                                  else 3)
+            resolved, fired = run(op, nbytes, iters=iters)
+            relays = [fired.get(k, 0) for k in RELAYS[op]]
+            big = nbytes >= 8 * MIB
+            if big and (resolved != "pallas" or min(relays) == 0):
+                fail(f"AUTO {op} at {nbytes} B: {resolved}, launches "
+                     f"{fired}: the relay kernels did not run")
+            if not big and (resolved == "pallas" or any(relays) or
+                            fired.get("chunked_rs_kernel", 0)):
+                fail(f"AUTO {op} at {nbytes} B: {resolved}, launches "
+                     f"{fired}: a relay kernel ran below 8 MiB")
+    families = {"bcast": ("xla", "flat", "tree", "ring"),
+                "scatter": ("xla", "flat"),
+                "gather": ("xla", "flat", "ring"),
+                "reduce": ("xla", "flat", "tree", "ring")}
+    for op, algos in families.items():
+        for algo in algos:
+            run(op, 64 * MIB, Algorithm(algo), iters=3)
+    for op in ("bcast", "reduce"):
+        _, fired = run(op, 64 * MIB, Algorithm.PALLAS, wire="bf16", iters=3)
+        if min(fired.get(k, 0) for k in RELAYS[op]) == 0:
+            fail(f"PALLAS {op} with a bf16 wire did not launch {RELAYS[op]}")
+    acc.barrier()
+    log("barrier: done")
+    return counts()
+
+
 # ---------------------------------------------------------------------------
 
 REPLACES = {
@@ -725,11 +998,21 @@ REPLACES = {
     "combine_kernel": "accl_tpu/ops/reduce_ops.py:62",
     "cast_kernel": "accl_tpu/ops/compression.py:43",
     "sr_kernel": "accl_tpu/ops/compression.py:119",
+    "bcast_relay_kernel": "accl_tpu/parallel/pallas_chunked.py:430",
+    "scatter_relay_kernel": "accl_tpu/parallel/pallas_chunked.py:570",
+    "gather_relay_kernel": "accl_tpu/parallel/pallas_chunked.py:856",
 }
 SOURCE = {"ring_rs_kernel": "ring.cu", "ring_ag_kernel": "ring.cu",
           "chunked_rs_kernel": "ring.cu", "chunked_ag_kernel": "ring.cu",
           "combine_kernel": "plugins.cu", "cast_kernel": "plugins.cu",
-          "sr_kernel": "plugins.cu"}
+          "sr_kernel": "plugins.cu", "bcast_relay_kernel": "ring.cu",
+          "scatter_relay_kernel": "ring.cu", "gather_relay_kernel": "ring.cu"}
+#: the part of phase 3 whose launch counts each kernel's entry reports
+PART = {"ring_rs_kernel": "allreduce", "ring_ag_kernel": "allreduce",
+        "chunked_rs_kernel": "allreduce", "chunked_ag_kernel": "allreduce",
+        "combine_kernel": "slice2", "cast_kernel": "slice2",
+        "sr_kernel": "slice2", "bcast_relay_kernel": "rooted",
+        "scatter_relay_kernel": "rooted", "gather_relay_kernel": "rooted"}
 
 
 def main() -> int:
@@ -757,16 +1040,16 @@ def main() -> int:
     gen.manual_seed(1234)
     check_kernels(gen)
     check_plugin_kernels(gen)
+    check_relay_kernels(gen)
     total = torch.cuda.get_device_properties(0).total_memory
-    meas = measure_kernels(gen, big_ok=total >= 60 * GIB)
+    big_ok = total >= 60 * GIB
+    meas = measure_kernels(gen, big_ok)
     meas.update(measure_plugin_kernels(gen))
+    meas.update(measure_relay_kernels(gen, big_ok))
 
-    ring_launches = main_path(gen)
-    plugin_launches = slice2_paths(gen)
-    launches = {k: ring_launches[k] for k in REPLACES
-                if SOURCE[k] == "ring.cu"}
-    launches.update({k: plugin_launches[k] for k in REPLACES
-                     if SOURCE[k] == "plugins.cu"})
+    parts = {"allreduce": main_path(gen), "slice2": slice2_paths(gen),
+             "rooted": rooted_paths(gen, big_ok)}
+    launches = {k: parts[PART[k]][k] for k in REPLACES}
     for k, v in launches.items():
         if v <= 0:
             fail(f"{k} was not launched on the main path")

@@ -268,6 +268,11 @@ def test_config_and_stats(tacc):
     tacc.config = tacc.config.replace(program_cache_size=512)
     assert tacc.stats()["program_cache"]["max_size"] == 512
 
+    # one call of its own, so the cache holds a program whichever of this
+    # module's tests ran before on this worker
+    f32 = at.dataType.float32
+    tacc.allreduce(tacc.create_buffer(8, f32), tacc.create_buffer(8, f32), 8,
+                   at.reduceFunction.SUM)
     st = tacc.stats()
     assert json.loads(json.dumps(st)) == st
     assert st["hwid"]["world_size"] == WORLD

@@ -1,12 +1,14 @@
-"""The port's CUDA kernels (the ring kernels and the plugin lanes) against
-their plain PyTorch versions on the card: bit-equal (``torch.equal``, or
-the raw bits where NaN can occur). These tests need an NVIDIA GPU with
+"""The port's CUDA kernels (the ring kernels, the rooted relays and the
+plugin lanes) against their plain PyTorch versions on the card: bit-equal
+(``torch.equal``, or the raw bits where NaN can occur). These tests need an NVIDIA GPU with
 ``nvcc`` (the kernels build at first use); where no card is visible they
 skip. On the card, where JAX is not installed, skip the suite's conftest:
 ``pytest --noconftest tests/test_torch_cuda.py -m cuda``.
 
 Each test loops over its cases and names the failing one in its message,
 so the suite adds few items to the tier-1 collection."""
+import math
+
 import pytest
 import torch
 
@@ -123,8 +125,9 @@ def _combine_kernel_cases(gen):
 
 
 def test_allgather_kernels(gen):
-    """ring_ag_kernel and chunked_ag_kernel, then the plugin cast and
-    stochastic-round kernels (the wire)."""
+    """ring_ag_kernel and chunked_ag_kernel, then the rooted relays (their
+    transport cousins), then the plugin cast and stochastic-round kernels
+    (the wire)."""
     from accl_tpu_torch.parallel import pallas_chunked as pc
     from accl_tpu_torch.parallel import pallas_ring as pr
     for dtype in (torch.int8, torch.bfloat16, torch.float32, torch.int64):
@@ -136,7 +139,40 @@ def test_allgather_kernels(gen):
             assert torch.equal(pc.chunked_allgather(b, bidir),
                                pc.plain_chunked_allgather(b, bidir)), \
                 (dtype, bidir)
+    _relay_kernel_cases(gen)
     _cast_and_round_cases(gen)
+
+
+def _relay_kernel_cases(gen):
+    """bcast_relay_kernel, scatter_relay_kernel and gather_relay_kernel
+    against their plain versions, by bits: P in {2, 3, 8}, roots 0, P-1 and
+    a middle rank, one and three segments of a ragged length, 1-, 2-, 4-
+    and 8-byte elements (f32 with NaN and +-0). The root's row, which a
+    relay leaves unwritten, is not compared."""
+    from accl_tpu_torch.parallel import pallas_chunked as pc
+
+    def data(shape, dtype):
+        x = _specials(math.prod(shape), gen).view(*shape)
+        return x.to(dtype) if dtype.is_floating_point else \
+            x.nan_to_num(0.0).mul(50).to(dtype)
+
+    for P in (2, 3, 8):
+        for root in sorted({0, P // 2, P - 1}):
+            keep = [r for r in range(P) if r != root]
+            for dtype in (torch.int8, torch.bfloat16, torch.float32,
+                          torch.int64):
+                for C in (1, 3):
+                    x, xs = data((P, C, 777), dtype), data((P, P, C, 777),
+                                                          dtype)
+                    for name, got, want in (
+                            ("bcast", pc.chunked_bcast(x, root),
+                             pc.plain_chunked_bcast(x, root)),
+                            ("scatter", pc.chunked_scatter(xs, root),
+                             pc.plain_chunked_scatter(xs, root)),
+                            ("gather", pc.chunked_gather(x, root),
+                             pc.plain_chunked_gather(x, root))):
+                        assert _same_bits(got[keep], want[keep]), \
+                            (name, P, root, dtype, C)
 
 
 def _cast_and_round_cases(gen):
@@ -166,7 +202,9 @@ def _cast_and_round_cases(gen):
 def test_accl_allreduce_on_card(gen, monkeypatch):
     """The host API on the card against the same program on the CPU, on
     the flat, ring-kernel and segmented-kernel paths, each call completed
-    by its request; then a ring timeout fails the request."""
+    by its request, and the rooted collectives below and above the relays'
+    8 MiB threshold; then a ring timeout and a relay timeout fail their
+    requests."""
     import accl_tpu_torch as at
     from accl_tpu_torch.parallel import pallas_ring as pr
     for nbytes in (4, 1 << 20, 4 << 20, 16 << 20):
@@ -185,6 +223,7 @@ def test_accl_allreduce_on_card(gen, monkeypatch):
             req.wait()
             out[dev] = r.data.cpu()
         assert torch.equal(out["cuda"], out["cpu"]), nbytes
+    _rooted_on_card(gen)
 
     # with a zero spin bound every hop that has to wait times out: the
     # launches still return, and the call's request raises at wait
@@ -201,3 +240,46 @@ def test_accl_allreduce_on_card(gen, monkeypatch):
         req.wait()
     assert ei.value.code == at.errorCode.KRNL_TIMEOUT_STS_ERROR
     assert req.status == at.requestStatus.ERROR
+    d = acc.create_buffer(count, at.dataType.float32)
+    req = acc.reduce(s, d, count, 5, at.reduceFunction.SUM,
+                     from_device=True, to_device=True, run_async=True,
+                     algorithm=at.Algorithm.PALLAS)
+    with pytest.raises(at.ACCLError) as ei:
+        req.wait()
+    assert ei.value.code == at.errorCode.KRNL_TIMEOUT_STS_ERROR
+
+
+def _rooted_on_card(gen):
+    """bcast, scatter, gather and reduce through the host API on the card
+    against the CPU, AUTO at 64 KiB and 16 MiB per rank (a plain family,
+    then the relays), the receive buffers pre-filled."""
+    import accl_tpu_torch as at
+    f32 = at.dataType.float32
+    for nbytes in (64 << 10, 16 << 20):
+        n = nbytes // 4
+        x = _make((8, 8 * n), torch.float32, gen)
+        pre = _make((8, 8 * n), torch.float32, gen)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            acc = at.ACCL(world=8, device=dev, config=at.ACCLConfig(
+                transport=at.TransportBackend.ICI))
+
+            def buf(count, t):
+                b = acc.create_buffer(count, f32)
+                b.device_store(t[:, :count].contiguous().to(dev))
+                return b
+
+            kw = {"from_device": True, "to_device": True}
+            b = buf(n, x)
+            acc.bcast(b, n, 2, **kw)
+            s, r = buf(8 * n, x), buf(n, pre)
+            acc.scatter(s, r, n, 7, **kw)
+            g_s, g_r = buf(n, x), buf(8 * n, pre)
+            acc.gather(g_s, g_r, n, 0, **kw)
+            d_s, d_r = buf(n, x), buf(n, pre)
+            acc.reduce(d_s, d_r, n, 5, at.reduceFunction.SUM, **kw)
+            acc.barrier()
+            out[dev] = [t.data.cpu() for t in (b, r, g_r, d_r)]
+        for op, a, c in zip(("bcast", "scatter", "gather", "reduce"),
+                            out["cuda"], out["cpu"]):
+            assert torch.equal(a, c), (op, nbytes)

@@ -80,10 +80,8 @@ RS_CASES = [(1, True, "float32"), (2, True, "int32"), (3, True, "float32"),
             (4, False, "float32")]
 
 
-@pytest.mark.parametrize("cases", [RS_CASES[:2], RS_CASES[2:]],
-                         ids=["C1-C2", "C3-C4"])
-def test_chunked_reduce_scatter_parity(oracle, cases):
-    for nseg, bidir, dt in cases:
+def test_chunked_reduce_scatter_parity(oracle):
+    for nseg, bidir, dt in RS_CASES:
         n = _seg_elems(dt) * nseg
         jx, tx = _inputs(100 + nseg, (WORLD, WORLD * n), dt)
         want = oracle(f"rs-{nseg}-{bidir}-{dt}",

@@ -1,8 +1,9 @@
 """Selection parity: the port's ``algorithms.select`` resolves the same
-algorithm family as the JAX package's for allreduce, reduce-scatter and
-all-gather over a 4 B - 1 GiB sweep (the ladder plus the synthesizer's
-latency tier), on the intra-node tier, the emulator rung and DCN; and
-every family AUTO resolves there builds."""
+algorithm family as the JAX package's for allreduce, reduce-scatter,
+all-gather and the rooted bcast, scatter, gather and reduce over a
+4 B - 1 GiB sweep (the ladder plus the synthesizer's latency tier), on the
+intra-node tier, the emulator rung and DCN; and every family AUTO resolves
+there builds."""
 import jax
 import pytest
 import torch
@@ -18,7 +19,8 @@ from accl_tpu_torch.parallel import algorithms as talg
 
 torch.set_num_threads(1)
 
-OPS = ("allreduce", "reduce_scatter", "allgather")
+OPS = ("allreduce", "reduce_scatter", "allgather", "bcast", "scatter",
+       "gather", "reduce")
 SIZES = [1 << e for e in range(2, 31)] + [3, 1000, 8191, 8192, 1048575]
 
 
@@ -43,7 +45,7 @@ def test_select_parity_sweep():
 
 
 def _auto_builds_everywhere():
-    """No AUTO resolution of the three ops raises at world 8: every
+    """No AUTO resolution of the seven ops raises at world 8: every
     power-of-4 size from 4 B to 1 GiB on SIM, ICI and DCN resolves and
     builds its program (built, not run)."""
     f32, SUM = at.dataType.float32, at.reduceFunction.SUM
@@ -57,7 +59,11 @@ def _auto_builds_everywhere():
                 acc._spec_allreduce(count, f32, SUM, None, None),
                 acc._spec_reduce_scatter(max(1, count // 8), f32, SUM,
                                          None, None),
-                acc._spec_allgather(count, f32, None, None))
+                acc._spec_allgather(count, f32, None, None),
+                acc._spec_bcast(count, f32, 3, None, None),
+                acc._spec_scatter(count, f32, 3, None, None),
+                acc._spec_gather(count, f32, 3, None, None),
+                acc._spec_reduce(count, f32, 3, SUM, None, None))
             for key, build in specs:
                 assert callable(build()), (transport, nbytes, key)
 
@@ -75,7 +81,7 @@ def _main_path_families_at_world8():
         assert talg.select(op, nbytes, tcomm, cfg) == at.Algorithm.PALLAS
 
 
-def test_select_parity_non_default_registers():
+def _select_parity_non_default_registers():
     """A seeded threshold pins the ladder; a zero tier or synthesis off
     drops the latency tier: both packages agree on every size."""
     jcomm = JComm(jax.devices()[:8])
@@ -112,9 +118,11 @@ def _explicit_request_and_fallback():
 
 
 def _unported_families_raise():
-    """MULTIAXIS (the synthesizer's) is the one family still unported; the
-    others build, the hierarchical one refusing DCN without a host-aligned
-    shape as the JAX package does."""
+    """MULTIAXIS (the synthesizer's) is the one family of allreduce,
+    reduce-scatter and all-gather still unported, and alltoall is not
+    ported at all; the others build, the hierarchical one refusing DCN
+    without a host-aligned shape as the JAX package does, and every family
+    of the rooted ops builds, PALLAS only with its dtype."""
     tcomm = at.Communicator(8, "cpu")
     f32, SUM = at.dataType.float32, at.reduceFunction.SUM
     for build in (lambda a: talg.build_allreduce(tcomm, SUM, f32, a, None),
@@ -136,9 +144,28 @@ def _unported_families_raise():
     with pytest.raises(ValueError, match="composite"):
         talg.build_allreduce(at.Communicator(7, "cpu"), SUM, f32,
                              at.Algorithm.TWOTIER, None)
+    rooted = {
+        "bcast": lambda a, dt=f32: talg.build_bcast(tcomm, 3, a, None, dt),
+        "scatter": lambda a, dt=f32: talg.build_scatter(tcomm, 3, a, None,
+                                                        dt),
+        "gather": lambda a, dt=f32: talg.build_gather(tcomm, 3, a, None, dt),
+        "reduce": lambda a, dt=f32: talg.build_reduce(tcomm, 3, SUM, dt, a,
+                                                      None)}
+    for op, build in rooted.items():
+        for algo in talg._SUPPORTED[at.operation[op]]:
+            assert callable(build(algo)), (op, algo)
+        if op != "reduce":
+            with pytest.raises(ValueError, match="requires dt"):
+                build(at.Algorithm.PALLAS, None)
+    for algo in ("xla", "flat", "pallas"):
+        with pytest.raises(at.ACCLError) as ei:
+            talg.build_alltoall(tcomm, at.Algorithm(algo))
+        assert ei.value.code == at.errorCode.COLLECTIVE_NOT_IMPLEMENTED
+        assert "queue 1, item 5" in str(ei.value)
 
 
 def test_select_behaviour():
+    _select_parity_non_default_registers()
     _main_path_families_at_world8()
     _explicit_request_and_fallback()
     _unported_families_raise()
