@@ -12,10 +12,11 @@ payload stays on the device. Ported so far: ``allreduce``,
 ``reduce_scatter`` and ``allgather`` with every algorithm family but
 MULTIAXIS; the rooted collectives ``bcast``, ``scatter``, ``gather`` and
 ``reduce`` with every family the JAX package offers for them (the
-segmented relay kernels on ``PALLAS``); ``barrier``; the local primitives
-``copy`` and ``combine``; and ``write_arithconfig``. ``alltoall`` raises
-``COLLECTIVE_NOT_IMPLEMENTED``; send/recv, sub-communicators and the
-resilience and observability tiers come with later slices.
+segmented relay kernels on ``PALLAS``); ``alltoall`` in its XLA, FLAT and
+PALLAS (phased ring-rotation kernel) families; ``barrier``; the local
+primitives ``copy`` and ``combine``; and ``write_arithconfig``. Send/recv,
+sub-communicators and the resilience and observability tiers come with
+later slices.
 """
 from __future__ import annotations
 
@@ -33,6 +34,8 @@ from .config import ACCLConfig, Algorithm, TransportBackend
 from .constants import ACCLError, dataType, errorCode, operation, \
     reduceFunction
 from .obs import metrics as _metrics
+from .ops import collective_alltoall as _a2a_ops
+from .ops import collective_matmul as _cm_ops
 from .parallel import algorithms, hierarchical, primitives
 from .parallel.compiler import ProgramCache
 from .request import Request
@@ -63,6 +66,7 @@ class ACCL:
         # the once-per-pair fallback warnings are module-global; a new
         # session observes its own misconfiguration again
         algorithms.reset_global_fallback_warnings()
+        _cm_ops.reset_fallback_warnings()
         self._metrics_baseline = _metrics.snapshot()
 
     @property
@@ -72,9 +76,13 @@ class ACCL:
     @config.setter
     def config(self, cfg: ACCLConfig) -> None:
         """Write-through: the registers that steer module-level policy are
-        applied on every assignment (a bad ``dcn_wire_dtype`` raises
-        ValueError naming the register and leaves the config as it was)."""
+        applied on every assignment (a bad ``dcn_wire_dtype`` or
+        ``cmatmul_wire_dtype`` raises ValueError naming the register and
+        leaves the config as it was)."""
         hierarchical.set_dcn_wire_dtype(cfg.dcn_wire_dtype)
+        _cm_ops.set_wire_dtype(cfg.cmatmul_wire_dtype)
+        _a2a_ops.set_overlap_enabled(cfg.moe_overlap)
+        _a2a_ops.set_overlap_threshold(cfg.a2a_matmul_threshold)
         self._config = cfg
         self._programs.set_maxsize(cfg.program_cache_size)
 
@@ -325,6 +333,19 @@ class ACCL:
                 lambda: algorithms.build_reduce(comm, root, function, dtype,
                                                 algo, arith, seg))
 
+    def _spec_alltoall(self, count: int, dtype: dataType, compress_dtype,
+                       algorithm):
+        comm = self.comms[0]
+        arith = self._arith(dtype, compress_dtype)
+        # per-edge payload: each of the P fused trees moves `count` elements
+        algo = algorithms.select(
+            operation.alltoall, count * constants.dtype_size(dtype), comm,
+            self.config, algorithm)
+        seg = self.config.segment_size
+        return ((operation.alltoall, count, dtype, compress_dtype, algo, seg),
+                lambda: algorithms.build_alltoall(comm, algo, arith, dtype,
+                                                  seg))
+
     def _check_root(self, root: int) -> None:
         if not 0 <= root < self.world_size:
             raise ACCLError(errorCode.CONFIG_ERROR,
@@ -559,17 +580,24 @@ class ACCL:
                  run_async: bool = False,
                  compress_dtype: Optional[dataType] = None,
                  algorithm: Optional[Algorithm] = None) -> Optional[Request]:
-        """``ACCL::alltoall``: not ported yet; raises
-        ``COLLECTIVE_NOT_IMPLEMENTED`` naming the ROADMAP.md item that ports
-        it."""
+        """``count * world`` in and out per rank: chunk r of rank q lands at
+        rank r, slot q (``ACCL::alltoall``)."""
+        t0 = _metrics.tick()
         world = self.world_size
         self._check_count(sendbuf, count * world, "alltoall send")
         self._check_count(recvbuf, count * world, "alltoall recv")
-        self._arith(sendbuf.dtype, compress_dtype)
-        algo = algorithms.select(
-            operation.alltoall, count * constants.dtype_size(sendbuf.dtype),
-            self.comms[0], self.config, algorithm)
-        algorithms.build_alltoall(self.comms[0], algo)
+        x = self._input(sendbuf, count * world, from_device)
+        key, build = self._spec_alltoall(count, sendbuf.dtype,
+                                         compress_dtype, algorithm)
+        prog = self._programs.get(key, build)
+        errors: list = []
+        self._store(recvbuf, count * world,
+                    prog(x, errors=errors).to(recvbuf.torch_dtype))
+        _metrics.note_call(operation.alltoall,
+                           count * world * constants.dtype_size(sendbuf.dtype),
+                           sendbuf.dtype, key, t0)
+        return self._finish(operation.alltoall, recvbuf, to_device,
+                            run_async, errors)
 
     def barrier(self) -> None:
         """``ACCL::barrier``: wait for every launch on the device, then run

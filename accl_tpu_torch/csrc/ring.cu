@@ -10,6 +10,8 @@
 //   bcast_relay_kernel    <- accl_tpu/parallel/pallas_chunked.py  _chunked_bcast_kernel
 //   scatter_relay_kernel  <- accl_tpu/parallel/pallas_chunked.py  _chunked_scatter_kernel
 //   gather_relay_kernel   <- accl_tpu/parallel/pallas_chunked.py  _chunked_gather_kernel
+// and the phased ring-rotation all-to-all:
+//   alltoall_phase_kernel <- accl_tpu/parallel/pallas_chunked.py  _chunked_alltoall_kernel
 //
 // Rank model. A rank is a per-rank buffer reached through a pointer table
 // (RankPtrs): on one card every rank's row of a (P, ...) tensor, on
@@ -29,8 +31,9 @@
 // readiness flags only.
 //
 // The relays move a root's payload one neighbour at a time along the ring
-// (section "rooted relays" below). They are pure transport, templated on
-// the element's size, not its type: the TPU kernels run them in the wire
+// (section "rooted relays" below); the all-to-all rotates every rank's
+// chunks round the ring, phase by phase. They are pure transport, templated
+// on the element's size, not its type: the TPU kernels run them in the wire
 // dtype.
 //
 // No hang: the grid is launched cooperatively, so it is co-resident or
@@ -534,6 +537,76 @@ gather_relay_kernel(RankPtrs x, RankPtrs out, int* flags, int P, int C, long lon
 }
 
 // ---------------------------------------------------------------------------
+// phased ring-rotation all-to-all
+// ---------------------------------------------------------------------------
+//
+// _chunked_alltoall_kernel. x[r]: (P, C, S), rank r's chunks by destination
+// rank; out[r]: (P, C, S) by source rank, row r never written (the body
+// inserts the rank's own chunk exactly); bounce[r]: (2, C, S). Phase s
+// (1..P-1) moves every rank's chunk for rank r+s s hops right, segment by
+// segment. Every rank runs the same global steps g = C s(s-1)/2 + h C + c
+// (hop h of phase s, segment c): at step g rank r takes the segment its left
+// neighbour sends at that step, read where it lies (the left's input chunk
+// at hop 0, the left's bounce slot h%2 after it), and stores it in its
+// output row r-s at the phase's last hop, else in its own bounce slot
+// (h+1)%2, which its right neighbour reads at step g+C. So per hop a segment
+// is read once and written once, as the TPU kernel's HBM traffic is; its
+// send slot and remote copy become the direct read.
+//
+// One progress word per (rank, CTA): prog = g+1 once step g is done. To the
+// right neighbour it is readiness (the bounce segment stored at step g is
+// there); to the left it is the credit (the left's segment of step g has
+// been read). A bounce slot's previous content was stored at least 2C steps
+// earlier and read by the right neighbour C steps after that, so before
+// overwriting a slot at step g a rank waits for its right neighbour to have
+// finished step g-C; before reading the left's bounce it waits for the left
+// to have finished step g-C. One chain over global steps spans all hops and
+// phases, so a fast rank never overwrites a slot that still holds the
+// previous hop's tail segments. Every wait is on a neighbour's step g-C < g,
+// so the schedule cannot deadlock.
+template <typename T>
+__global__ void __launch_bounds__(ACCL_THREADS)
+alltoall_phase_kernel(RankPtrs x, RankPtrs out, RankPtrs bounce, int* flags, int P, int C,
+                      long long S, unsigned long long timeout_ns) {
+  const int r = blockIdx.z, b = blockIdx.x, B = gridDim.x;
+  const int left = (r - 1 + P) % P, right = (r + 1) % P;
+  int* const err = flags + P * B;
+  auto prog = [&](int rank) { return flags + rank * B + b; };
+  const long long per = (S + B - 1) / B;
+  const long long lo = min(S, (long long)b * per), hi = min(S, lo + per);
+  const long long slot = (long long)C * S;
+  const T* lx = static_cast<const T*>(x.p[left]);
+  const T* lb = static_cast<const T*>(bounce.p[left]);
+  T* mb = static_cast<T*>(bounce.p[r]);
+  T* o = static_cast<T*>(out.p[r]);
+  int g = 0;
+  for (int s = 1; s < P; ++s) {
+    for (int h = 0; h < s; ++h) {
+      const bool last = (h == s - 1);
+      for (int c = 0; c < C; ++c, ++g) {
+        const T* src;
+        if (h == 0) {
+          src = lx + ((long long)((left + s) % P) * C + c) * S;
+        } else {
+          if (!block_wait(prog(left), g - C + 1, err, timeout_ns)) return;
+          src = lb + (h & 1) * slot + (long long)c * S;
+        }
+        T* dst;
+        if (last) {
+          dst = o + ((long long)((r - s + P) % P) * C + c) * S;
+        } else {
+          if (!block_wait(prog(right), g - C + 1, err, timeout_ns)) return;
+          dst = mb + ((h + 1) & 1) * slot + (long long)c * S;
+        }
+        copy_slice(dst, src, lo, hi, h > 0);
+        block_fence();
+        if (threadIdx.x == 0) st_release(prog(r), g + 1);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // C interface
 // ---------------------------------------------------------------------------
 
@@ -574,7 +647,8 @@ static const void* ag_resolve(int chunked, int itemsize) {
   return nullptr;
 }
 
-enum { KIND_RS = 0, KIND_AG = 1, KIND_BCAST = 2, KIND_SCATTER = 3, KIND_GATHER = 4 };
+enum { KIND_RS = 0, KIND_AG = 1, KIND_BCAST = 2, KIND_SCATTER = 3, KIND_GATHER = 4,
+       KIND_ALLTOALL = 5 };
 
 template <typename T>
 static const void* relay_fn(int kind) {
@@ -582,6 +656,7 @@ static const void* relay_fn(int kind) {
     case KIND_BCAST: return (const void*)bcast_relay_kernel<T>;
     case KIND_SCATTER: return (const void*)scatter_relay_kernel<T>;
     case KIND_GATHER: return (const void*)gather_relay_kernel<T>;
+    case KIND_ALLTOALL: return (const void*)alltoall_phase_kernel<T>;
   }
   return nullptr;
 }
@@ -679,8 +754,10 @@ int accl_ring_ag(int chunked, int itemsize, const uint64_t* x, const uint64_t* o
   return (int)launch(fn, B, 1, P, args, static_cast<cudaStream_t>(stream));
 }
 
-// One rooted relay (kind KIND_BCAST, KIND_SCATTER or KIND_GATHER) over
-// elements of `itemsize` bytes; stage is read by the scatter only.
+// One rooted relay (kind KIND_BCAST, KIND_SCATTER or KIND_GATHER), or the
+// all-to-all (KIND_ALLTOALL, root unused), over elements of `itemsize` bytes;
+// stage is the scatter's staging slots or the all-to-all's bounce, unused
+// otherwise.
 int accl_ring_relay(int kind, int itemsize, const uint64_t* x, const uint64_t* out,
                     const uint64_t* stage, void* flags, int P, int C, long long S, int B,
                     int root, double timeout_s, void* stream) {
@@ -694,6 +771,11 @@ int accl_ring_relay(int kind, int itemsize, const uint64_t* x, const uint64_t* o
   if (kind == KIND_SCATTER) {
     RankPtrs ts = table(stage, P);
     void* args[] = {&tx, &to, &ts, &f, &P, &C, &S, &root, &tns};
+    return (int)launch(fn, B, 1, P, args, st);
+  }
+  if (kind == KIND_ALLTOALL) {
+    RankPtrs tb = table(stage, P);
+    void* args[] = {&tx, &to, &tb, &f, &P, &C, &S, &tns};
     return (int)launch(fn, B, 1, P, args, st);
   }
   void* args[] = {&tx, &to, &f, &P, &C, &S, &root, &tns};

@@ -24,7 +24,8 @@ _PKG = Path(__file__).resolve().parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_cuda_build"
 #: sources, by library name
-SOURCES = {"ring": SRC_DIR / "ring.cu", "plugins": SRC_DIR / "plugins.cu"}
+SOURCES = {"ring": SRC_DIR / "ring.cu", "plugins": SRC_DIR / "plugins.cu",
+           "a2a": SRC_DIR / "a2a.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
@@ -129,7 +130,16 @@ def _declare_plugins(lib: ctypes.CDLL) -> None:
     lib.accl_plugins_sr.restype = c_int
 
 
-_DECLARE = {"ring": _declare_ring, "plugins": _declare_plugins}
+def _declare_a2a(lib: ctypes.CDLL) -> None:
+    c_int, c_p = ctypes.c_int, ctypes.c_void_p
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    lib.accl_a2a_mm.argtypes = [c_int, c_int, c_int, c_int, u64p, u64p, u64p,
+                                c_int, c_int, c_int, c_int, c_int, c_p]
+    lib.accl_a2a_mm.restype = c_int
+
+
+_DECLARE = {"ring": _declare_ring, "plugins": _declare_plugins,
+            "a2a": _declare_a2a}
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -23,10 +23,12 @@ flat stars (:mod:`.flat`), the ring kernels and the segmented relays
 (``PALLAS``), the explicit ring (:mod:`.ring`), the binary trees
 (:mod:`.tree`), the 2-D hierarchical allreduce and, on an explicit request,
 the two-tier schedules (:mod:`.hierarchical`). Every family AUTO can
-resolve for allreduce, reduce-scatter, all-gather, bcast, scatter, gather
-and reduce builds; MULTIAXIS, which needs the synthesizer and which AUTO
-never selects on a single-axis mesh, and every alltoall raise
-``COLLECTIVE_NOT_IMPLEMENTED``.
+resolve for allreduce, reduce-scatter, all-gather, bcast, scatter, gather,
+reduce and alltoall builds; MULTIAXIS, which needs the synthesizer and which
+AUTO never selects on a single-axis mesh, raises
+``COLLECTIVE_NOT_IMPLEMENTED``. The MoE pair (:func:`build_alltoall_matmul`,
+:func:`build_matmul_alltoall`) builds its fused kernels on PALLAS and the
+unfused pair otherwise.
 """
 from __future__ import annotations
 
@@ -79,7 +81,6 @@ _SEED_FIELDS = {
 #: ROADMAP.md queue-1 item that ports each family or op still missing
 _ROADMAP_ITEM = {
     Algorithm.MULTIAXIS: "queue 1, item 8 (parallel/synth.py)",
-    operation.alltoall: "queue 1, item 5 (alltoall and its relay kernel)",
 }
 
 
@@ -448,6 +449,50 @@ def build_reduce(comm, root: int, func: reduceFunction, dt: dataType,
     return _no_kernels(primitives.build_reduce(comm, root, func, dt, arith))
 
 
-def build_alltoall(comm, algo: Algorithm) -> Callable:
-    """Not ported yet: every family raises ``COLLECTIVE_NOT_IMPLEMENTED``."""
-    raise _not_ported(operation.alltoall, algo)
+def build_alltoall(comm, algo: Algorithm, arith: Optional[ArithConfig],
+                   dt: Optional[dataType] = None,
+                   segment_bytes: Optional[int] = None) -> Callable:
+    """(world, world*n) -> (world, world*n): chunk r of rank q lands at rank
+    r, slot q."""
+    if algo == Algorithm.PALLAS:
+        _needs_dt(operation.alltoall, dt)
+        return pallas_chunked.build_chunked_ring_alltoall(
+            comm, dt, segment_bytes, arith=arith)
+    if algo == Algorithm.FLAT:
+        return _no_kernels(flat.build_flat_alltoall(comm, arith))
+    return _no_kernels(primitives.build_alltoall(comm, arith))
+
+
+def build_alltoall_matmul(comm, algo: Algorithm, bidirectional: bool = True,
+                          wire_dtype=None) -> Callable:
+    """(world, E, C, d) per-destination token blocks + (world, e_local, d,
+    h) expert in-projections -> (world, e_local, world*C, h) f32:
+    ``einsum(all_to_all(x), w)``. PALLAS runs the fused dispatch kernel
+    (:mod:`..ops.collective_alltoall`), anything else the unfused pair.
+    ``wire_dtype`` stages the token payload compressed ("off" pins full
+    precision)."""
+    from ..ops import collective_alltoall as ca
+    overlap = algo == Algorithm.PALLAS
+
+    def prog(x, w):
+        return ca.alltoall_matmul_body(x, w, overlap=overlap,
+                                       bidirectional=bidirectional,
+                                       wire_dtype=wire_dtype)
+
+    return prog
+
+
+def build_matmul_alltoall(comm, algo: Algorithm, bidirectional: bool = True,
+                          wire_dtype=None) -> Callable:
+    """(world, e_local, world*C, hd) expert activations + (world, e_local,
+    hd, d) out-projections -> (world, E, C, d) f32: ``all_to_all(einsum(h,
+    w))``, the fused combine kernel under PALLAS."""
+    from ..ops import collective_alltoall as ca
+    overlap = algo == Algorithm.PALLAS
+
+    def prog(h, w):
+        return ca.matmul_alltoall_body(h, w, overlap=overlap,
+                                       bidirectional=bidirectional,
+                                       wire_dtype=wire_dtype)
+
+    return prog

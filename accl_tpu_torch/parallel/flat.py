@@ -10,6 +10,9 @@ with per-edge wire compression, never a relay.
   receive buffer in place; the other rows keep their content.
 * allreduce (the latency tier's pick for small payloads): flat reduce to
   rank 0 then flat bcast from it.
+* alltoall: P fused trees; at rotation step s every rank sends chunk
+  (r+s)%P straight to its owner, each moved chunk through the wire, while
+  the rank's own chunk is a local copy and stays exact.
 
 The JAX package's fan-in throttle (``gather_flat_tree_max_fanin``) only
 paces the star's concurrent edges on a fabric and leaves the fold order
@@ -110,5 +113,26 @@ def build_flat_allreduce(comm: Communicator, func: reduceFunction,
             acc = _fold_in(acc, _wire(x[src], arith), func, dt, arith)
         peer = _unwire(_wire(acc, arith), arith, acc.dtype)
         return torch.stack([acc] + [peer] * (world - 1))
+
+    return prog
+
+
+def build_flat_alltoall(comm: Communicator,
+                        arith: Optional[ArithConfig] = None) -> Callable:
+    """(world, world*n) -> (world, world*n): chunk r of rank q lands at rank
+    r, slot q, through the wire; slot r of rank r is its own chunk,
+    exact."""
+    world = comm.world_size
+
+    def prog(x):
+        chunks = x.reshape(world, world, -1)
+        moved = chunks
+        if arith is not None and arith.is_compressing:
+            moved = _unwire(_wire(chunks, arith), arith, x.dtype)
+        out = torch.empty_like(chunks)
+        out.copy_(moved.transpose(0, 1))
+        ranks = torch.arange(world, device=x.device)
+        out[ranks, ranks] = chunks[ranks, ranks]
+        return out.view(world, -1)
 
     return prog

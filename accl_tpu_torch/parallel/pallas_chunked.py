@@ -1,9 +1,10 @@
 """Segmented ring collectives (counterpart:
 ``accl_tpu/parallel/pallas_chunked.py``): the reduce-scatter and all-gather
 above ``pallas_ring.VMEM_PAYLOAD_THRESHOLD`` staged bytes, up to 1 GiB per
-rank, and the rooted relays of bcast, scatter, gather and reduce.
+rank, the rooted relays of bcast, scatter, gather and reduce, and the
+phased ring-rotation all-to-all.
 
-Each chunk is cut into C segments of ``_geometry``'s size. Five kernels,
+Each chunk is cut into C segments of ``_geometry``'s size. Six kernels,
 each with its plain PyTorch version, a launch counter and a wrapper (plain
 version on CPU tensors, the CUDA kernel on CUDA tensors, no fallback):
 
@@ -32,13 +33,17 @@ and all-gather's two channels are separate CTA groups that run at once,
 each with its own two staging slots and flag words; the credit chain runs
 over a channel's global step counter across segment boundaries, as on the
 TPU. The relays are pure transport, run in the wire dtype: one channel,
-readiness words per segment, and (scatter only) credits on the two slots.
+readiness words per segment, and (scatter only) credits on the two slots;
+the all-to-all keeps one progress word per rank that is its right
+neighbour's readiness and its left neighbour's credit, over one global step
+count.
 
 The bodies keep the JAX package's host-side policy: the stride padding of
 each chunk into the uniform (P, C, S) grid, the per-parity realignment for
 bidirectional rings, the wire policy, and what a rooted body keeps exact
-(the root's own payload, block or partial never rides the wire) or passes
-through (non-root rows of gather and reduce keep the receive buffer).
+(the root's own payload, block or partial, and every rank's own all-to-all
+chunk, never ride the wire) or passes through (non-root rows of gather and
+reduce keep the receive buffer).
 """
 from __future__ import annotations
 
@@ -144,15 +149,15 @@ chunked_allgather.launches = 0
 # _chunked_scatter_kernel, _chunked_gather_kernel)
 # ---------------------------------------------------------------------------
 
-#: the relays' kernel kinds (``KIND_*`` of csrc/ring.cu)
-_BCAST, _SCATTER, _GATHER = 2, 3, 4
+#: the relays' and the all-to-all's kernel kinds (``KIND_*`` of csrc/ring.cu)
+_BCAST, _SCATTER, _GATHER, _ALLTOALL = 2, 3, 4, 5
 
 
 def _launch_relay(kind: int, x: torch.Tensor, root: int, out_shape,
                   what: str):
-    """Enqueue one rooted relay on the card; x's rows are the ranks'
-    inputs. Returns (out, flags); the caller checks the flags' error
-    word."""
+    """Enqueue one rooted relay or the all-to-all (``root`` unused) on the
+    card; x's rows are the ranks' inputs. Returns (out, flags); the caller
+    checks the flags' error word."""
     P = x.shape[0]
     C, S = out_shape[-2], out_shape[-1]
     _pr._check_cuda(x, what)
@@ -168,6 +173,8 @@ def _launch_relay(kind: int, x: torch.Tensor, root: int, out_shape,
     if kind == _SCATTER:
         stage = torch.empty((P, 2, S), dtype=x.dtype, device=dev)
         nflags = 2 * P * B * 2 + 1
+    elif kind == _ALLTOALL:
+        stage = torch.empty((P, 2, C, S), dtype=x.dtype, device=dev)
     flags = torch.zeros(nflags, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.accl_ring_relay(
@@ -255,6 +262,35 @@ def chunked_gather(x: torch.Tensor, root: int, errors=None) -> torch.Tensor:
 
 
 chunked_gather.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# kernel 10: the phased ring-rotation all-to-all (_chunked_alltoall_kernel)
+# ---------------------------------------------------------------------------
+
+def plain_chunked_alltoall(x: torch.Tensor) -> torch.Tensor:
+    """x (P, P, C, S): rank r's chunks by destination rank -> (P, P, C, S):
+    rank r's chunks by source rank, ``o[r, s] = x[s, r]``. The kernel leaves
+    ``o[r, r]`` unwritten (the body inserts the rank's own chunk)."""
+    return x.transpose(0, 1).contiguous()
+
+
+def chunked_alltoall(x: torch.Tensor, errors=None) -> torch.Tensor:
+    """Kernel 10 (replaces ``pallas_chunked.py:_chunked_alltoall_kernel``).
+    Same contract as :func:`plain_chunked_alltoall`; ``errors`` as in
+    :mod:`.pallas_ring`."""
+    if x.device.type != "cuda":
+        return plain_chunked_alltoall(x)
+    if x.shape[0] == 1:
+        return x.clone()
+    out, flags = _launch_relay(_ALLTOALL, x, 0, x.shape,
+                               "alltoall_phase_kernel")
+    chunked_alltoall.launches += 1
+    _pr._note_error_word(flags, "alltoall_phase_kernel", errors)
+    return out
+
+
+chunked_alltoall.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -483,6 +519,49 @@ def chunked_reduce_body(x, *, P: int, root: int, func: reduceFunction,
     blocks[root] = partial[root].reshape(-1)[:chunk]
     # source rank r folded chunk (r+1)%P: roll so slot c holds chunk c
     return torch.roll(blocks, 1, dims=0).reshape(-1)[:n]
+
+
+def chunked_alltoall_body(x, *, P: int, dtype, segment_bytes: int,
+                          wire=None, errors=None):
+    """(P, P*n) -> (P, P*n): chunk d of rank r's row goes to rank d; slot s
+    of rank r's result holds rank s's chunk for r. ``wire`` runs every hop
+    in the wire dtype (pure transport); a rank's own chunk never rides the
+    wire and stays exact."""
+    n = x.shape[-1] // P
+    if P == 1:
+        return x.clone()
+    kdt = wire[0] if wire is not None else dtype
+    C, _, seg_elems = _geometry(n, kdt, segment_bytes)
+    per = C * seg_elems
+    xin = x.reshape(P, P, n)
+    wired = _pr._to_wire(xin, wire) if wire is not None else xin.to(dtype)
+    if n == per and wired.is_contiguous():
+        grid = wired
+    else:
+        grid = torch.zeros((P, P, per), dtype=kdt, device=x.device)
+        grid[:, :, :n] = wired
+    out = chunked_alltoall(grid.view(P, P, C, seg_elems), errors)
+    blocks = _unwire_to(out.view(P, P, per)[:, :, :n], dtype, wire, x.dtype)
+    ranks = torch.arange(P, device=x.device)
+    blocks[ranks, ranks] = xin[ranks, ranks]
+    return blocks.reshape(P, P * n)
+
+
+def build_chunked_ring_alltoall(comm: Communicator, dt: dataType,
+                                segment_bytes=None, arith=None) -> Callable:
+    """(world, world*n) -> (world, world*n): phased ring-rotation
+    all-to-all. A compressing ``arith`` compresses every hop (pure
+    transport)."""
+    P = comm.world_size
+    dtype = constants.to_torch_dtype(dt)
+    seg = segment_bytes or constants.DEFAULT_SEGMENT_SIZE
+    wire = _transport_wire(arith)
+
+    def prog(x, errors=None):
+        return chunked_alltoall_body(x, P=P, dtype=dtype, segment_bytes=seg,
+                                     wire=wire, errors=errors)
+
+    return prog
 
 
 def _transport_wire(arith):

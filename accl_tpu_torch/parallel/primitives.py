@@ -9,10 +9,11 @@ order (:func:`..ops.registry.reduce_axis0`). Wire compression
 (``ETH_COMPRESSED``) casts to the wire dtype before the exchange and back
 after it, as the JAX programs do; the fold runs in the wire dtype unless
 the arith config decompresses first. The rooted programs (bcast, scatter,
-gather, reduce) and the barrier's zero-payload program are here too; a
-gather or reduce program takes the receive buffer as its second operand,
-writes the root's row of it in place and returns it: every other row keeps
-its content, as the JAX programs' ``where(rank == root, ..., recv)`` does.
+gather, reduce), the all-to-all and the barrier's zero-payload program are
+here too; a gather or reduce program takes the receive buffer as its second
+operand, writes the root's row of it in place and returns it: every other
+row keeps its content, as the JAX programs' ``where(rank == root, ...,
+recv)`` does.
 """
 from __future__ import annotations
 
@@ -209,6 +210,23 @@ def build_reduce(comm: Communicator, root: int, func: reduceFunction,
             red = _unwire(_psum(x, func, dt), arith, recv.dtype)
         recv[root] = red
         return recv
+
+    return prog
+
+
+def build_alltoall(comm: Communicator,
+                   arith: Optional[ArithConfig] = None) -> Callable:
+    """(world, world*n) -> (world, world*n): chunk r of rank q lands at rank
+    r, slot q. The whole send buffer goes through the wire, the rank's own
+    chunk too (``lax.all_to_all`` of the wired buffer in the JAX
+    package)."""
+    world = comm.world_size
+
+    def prog(send):
+        x = _wire(send, arith).reshape(world, world, -1)
+        swapped = torch.empty_like(x)
+        swapped.copy_(x.transpose(0, 1))
+        return _unwire(swapped.view(world, -1), arith, send.dtype)
 
     return prog
 

@@ -4,9 +4,9 @@
 Run from the repository root: ``python3 chip_smoke.py``. Phases, in order;
 any failure exits non-zero and nothing is caught and skipped:
 
-1. build the kernels from ``accl_tpu_torch/csrc`` (``ring.cu`` and
-   ``plugins.cu``, one ``nvcc`` each, in parallel) and print the build
-   time, the card and its power limit;
+1. build the kernels from ``accl_tpu_torch/csrc`` (``ring.cu``,
+   ``plugins.cu`` and ``a2a.cu``, one ``nvcc`` each, in parallel) and print
+   the build time, the card and its power limit;
 2. hold every kernel against its plain PyTorch version on the card, bit
    for bit (``torch.equal``, or the raw bits where NaN can occur): the four
    ring kernels (P in {2, 8}, a ragged length, SUM and MAX, f32 / i32 /
@@ -16,8 +16,14 @@ any failure exits non-zero and nothing is caught and skipped:
    three seeds and per-row seeds; NaN, +-0, inf, subnormal and overflow
    cases) and the three rooted relays (P in {2, 8}, roots 0, P-1 and a
    middle rank, one and three segments of a ragged length, 1-, 2- and
-   4-byte elements with NaN and +-0), then time each kernel, its plain
-   version and a one-call PyTorch yardstick at the shapes of the main path;
+   4-byte elements with NaN and +-0), the all-to-all (P in {2, 3, 8}, one
+   and three segments, 1-, 2- and 4-byte elements with NaN and +-0, by
+   bits) and the fused MoE dispatch and combine (worlds 2, 3 and 8,
+   bidirectional on and off, an aligned and an uneven shape, f32 and bf16
+   wires: integer-valued operands bit-equal, random ones within the f32
+   summation bound, with TF32 off for the plain versions), then time each
+   kernel, its plain version and a one-call PyTorch yardstick at the
+   shapes of the main path;
 3. the main path, each part with every launch counter set to 0 just
    before it and read just after:
    a. ``ACCL(world=8)`` runs AUTO all-reduce, f32 SUM, from 4 B to 1 GiB
@@ -44,6 +50,19 @@ any failure exits non-zero and nothing is caught and skipped:
       Bcast, scatter and gather are checked exactly, reduce against the
       f32 fold bound (plus the bf16 wire's roundings), and every non-root
       receive row must keep its pre-filled pattern; ``barrier`` closes it;
+   d. ``ACCL.alltoall`` at world 8: AUTO over per-rank send buffers of 4 B
+      to 1 GiB in powers of 4 (at least one f32 element per destination),
+      where the counters must show ``alltoall_phase_kernel`` exactly where
+      AUTO resolves PALLAS (from 8 MiB per destination); explicit XLA, FLAT
+      and PALLAS at 64 MiB per rank, and PALLAS with a bf16 wire; every
+      result exact (the bf16 wire: the nearest bf16, a rank's own chunk
+      exact);
+   e. the MoE forward at the full width of Switch-Base-8 (d_model 768,
+      d_ff 3072, 8 experts, top-1, ReLU), world 8, 2048 tokens per rank,
+      capacity 320: the fused path (both MoE kernels must launch) and the
+      unfused baseline, checked against each other and a float64
+      reference; then the fused dispatch against the unfused pair at the
+      repository's lane shape (e_local 2, C 128, d 256, h 512);
 4. print the ``kernels`` line, the card line and, last, the device line.
 
 Exits 2 without printing a result when no CUDA device is visible.
@@ -64,6 +83,9 @@ HBM_BYTES_PER_S = 3.35e12
 #: H100 SXM 32-bit integer rate (ops/s): 64 INT32 lanes per SM, half of
 #: the 67 TFLOP/s float32 rate of NVIDIA's data sheet
 INT32_OPS_PER_S = 33.5e12
+#: H100 SXM dense TF32 tensor-core rate (FLOP/s), NVIDIA's data sheet: the
+#: target of a later tensor-core redesign of the MoE kernels
+TF32_TC_FLOPS = 495e12
 
 
 def log(msg: str) -> None:
@@ -306,6 +328,94 @@ def check_relay_kernels(gen) -> None:
                         n_cases += 1
     torch.cuda.synchronize()
     log(f"phase 2: {n_cases} relay kernel-vs-plain cases bit-equal")
+
+
+def check_alltoall_kernels(gen) -> None:
+    """alltoall_phase_kernel against its plain version, by bits: P in {2,
+    3, 8}, one and three segments of a ragged length, int8 / bf16 / f32
+    (random data with NaN, -NaN, +-0, inf and subnormals). Each rank's own
+    slot, which the kernel leaves unwritten, is not compared."""
+    import torch
+    from accl_tpu_torch.parallel import pallas_chunked as pc
+
+    n_cases = 0
+    for P in (2, 3, 8):
+        off = ~torch.eye(P, dtype=torch.bool, device="cuda")
+        for dt in (torch.int8, torch.bfloat16, torch.float32):
+            for C in (1, 3):
+                x = specials(P * P * C * 1000, gen).view(P, P, C, 1000)
+                x = (x.nan_to_num(0.0) * 50).to(dt) if dt == torch.int8 \
+                    else x.to(dt)
+                if not same_bits(pc.chunked_alltoall(x)[off],
+                                 pc.plain_chunked_alltoall(x)[off]):
+                    fail(f"alltoall_phase_kernel != plain (P={P} {dt} "
+                         f"C={C})")
+                n_cases += 1
+    torch.cuda.synchronize()
+    log(f"phase 2: {n_cases} alltoall kernel-vs-plain cases bit-equal")
+
+
+def f32_sum_bound(k: int, mag):
+    """The f32 bound on two sums of the same k products taken in different
+    orders: each is within k 2^-24 sum|a b| of the exact value."""
+    return 2 * k * 2.0 ** -24 * mag
+
+
+def check_moe_kernels(gen) -> None:
+    """a2a_mm_kernel and mm_a2a_kernel against their plain versions at
+    worlds 2, 3 and 8, bidirectional on and off, the aligned shape (e_local,
+    C, d, h) = (2, 8, 128, 128) and the uneven (2, 5, 72, 40), f32 and bf16
+    wires (the dispatch's token payload, the combine's rounded output):
+    integer-valued operands bit-equal, random ones within
+    :func:`f32_sum_bound`. The plain versions run with TF32 off."""
+    import torch
+    from accl_tpu_torch.ops import collective_alltoall as ca
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on for float32 matmuls: the plain versions would be "
+             "the inexact side")
+
+    def ints(shape, lo=-4, hi=5):
+        return torch.randint(lo, hi, shape, generator=gen,
+                             device="cuda").float()
+
+    n_cases, worst = 0, 0.0
+    for P in (2, 3, 8):
+        for el, C, d, h in ((2, 8, 128, 128), (2, 5, 72, 40)):
+            for bidir in (False, True):
+                for wire in (torch.float32, torch.bfloat16):
+                    case = f"P={P} shape={(el, C, d, h)} bidir={bidir} " \
+                        f"wire={wire}"
+                    x = ints((P, P * el, C, d)).to(wire)
+                    w = ints((P, el, d, h))
+                    if not torch.equal(ca.a2a_mm(x, w, bidir),
+                                       ca.plain_a2a_mm(x, w)):
+                        fail(f"a2a_mm_kernel != plain ({case})")
+                    hx = ints((P, el, P * C, h), -9, 10)
+                    wo = ints((P, el, h, d))
+                    if not torch.equal(ca.mm_a2a(hx, wo, wire, bidir),
+                                       ca.plain_mm_a2a(hx, wo, wire)):
+                        fail(f"mm_a2a_kernel != plain ({case})")
+                    n_cases += 2
+            x = torch.randn((P, P * el, C, d), generator=gen, device="cuda")
+            w = torch.randn((P, el, d, h), generator=gen, device="cuda")
+            hx = torch.randn((P, el, P * C, h), generator=gen, device="cuda")
+            wo = torch.randn((P, el, h, d), generator=gen, device="cuda")
+            for name, got, want, mag, k in (
+                    ("a2a_mm_kernel", ca.a2a_mm(x, w), ca.plain_a2a_mm(x, w),
+                     ca.plain_a2a_mm(x.abs(), w.abs()), d),
+                    ("mm_a2a_kernel", ca.mm_a2a(hx, wo),
+                     ca.plain_mm_a2a(hx, wo),
+                     ca.plain_mm_a2a(hx.abs(), wo.abs()), h)):
+                err = (got - want).abs()
+                if bool((err > f32_sum_bound(k, mag)).any()):
+                    fail(f"{name} random f32 outside the f32 sum bound "
+                         f"(P={P} shape={(el, C, d, h)})")
+                worst = max(worst, err.max().item())
+                n_cases += 1
+    torch.cuda.synchronize()
+    log(f"phase 2: {n_cases} MoE kernel-vs-plain cases (integer operands "
+        f"bit-equal; random within the f32 sum bound, max|err| {worst!r})")
 
 
 def measure_kernels(gen, big_ok: bool) -> dict:
@@ -552,6 +662,136 @@ def measure_relay_kernels(gen, big_ok: bool) -> dict:
     return res
 
 
+def measure_alltoall_kernel(gen, big_ok: bool) -> dict:
+    """alltoall_phase_kernel at the main path's largest call, the 1 GiB per
+    rank all-to-all (f32, P=8, 1 MiB segments: (8, 8, 128, 262144)), a
+    quarter of it when the card has less than 60 GiB. Bounds, n one chunk's
+    elements: the function reads and writes the P (P-1) n words that leave
+    their rank, 2 P (P-1) n words in all; the ring schedule moves P n P(P-1)/2
+    words hop by hop, each read and written (4x the function's at P = 8)."""
+    import torch
+    from accl_tpu_torch.parallel import pallas_chunked as pc
+
+    P = 8
+    S = MIB // 4
+    per_rank = GIB if big_ok else 256 * MIB
+    C = per_rank // 4 // P // S
+    x = torch.randn((P, P, C, S), generator=gen, device="cuda")
+    n = C * S
+    off = ~torch.eye(P, dtype=torch.bool, device="cuda")
+    got = pc.chunked_alltoall(x)
+    want = pc.plain_chunked_alltoall(x)
+    err = 0.0
+    for r in range(P):                    # row by row: 1 GiB rows
+        keep = off[r]
+        if not same_bits(got[r][keep], want[r][keep]):
+            fail(f"alltoall_phase_kernel != plain at the main-path shape "
+                 f"{tuple(x.shape)} (row {r})")
+        err = max(err, (got[r][keep] - want[r][keep]).abs().max().item())
+    del got, want
+    torch.cuda.empty_cache()
+    words = 2 * P * (P - 1) * n
+    ring_words = 2 * P * n * P * (P - 1) // 2
+    res = {"alltoall_phase_kernel": {
+        "shape": list(x.shape), "max_abs_err": err,
+        "ms": time_ms(lambda: pc._launch_relay(
+            pc._ALLTOALL, x, 0, x.shape, "alltoall_phase_kernel"), 3),
+        "plain_ms": time_ms(lambda: pc.plain_chunked_alltoall(x), 3),
+        "library_ms": time_ms(
+            lambda: x.view(P, P, n).transpose(0, 1).contiguous(), 3),
+        "bound_ms": words * 4 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "ring_bound_ms": ring_words * 4 / HBM_BYTES_PER_S * 1e3}}
+    r = res["alltoall_phase_kernel"]
+    log(f"  alltoall_phase_kernel {tuple(x.shape)}: kernel {r['ms']!r} ms, "
+        f"plain {r['plain_ms']!r} ms, library {r['library_ms']!r} ms, bound "
+        f"{r['bound_ms']!r} ms, ring bound {r['ring_bound_ms']!r} ms, "
+        f"max_abs_err {err!r}")
+    del x
+    torch.cuda.empty_cache()
+    return res
+
+
+def f32_peak_flops() -> float:
+    """The card's f32 rate on the CUDA cores: 128 FP32 lanes per SM (sm_90),
+    two operations per fused multiply-add, at the SM count and the highest
+    SM clock that ``nvidia-smi`` reports."""
+    import torch
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, timeout=60)
+    if r.returncode != 0 or not r.stdout.strip():
+        fail(f"nvidia-smi clocks.max.sm failed: {r.stderr.strip()}")
+    mhz = float(r.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * 128 * 2 * mhz * 1e6
+
+
+#: Switch-Base-8 (Fedus et al., 2021; ``google/switch-base-8``): d_model,
+#: d_ff, experts; world 8 (one expert per rank), 2048 tokens per rank, top-1,
+#: capacity factor 1.25: C = 1.25 * 2048 / 8 = 320
+SWITCH = {"d": 768, "h": 3072, "E": 8, "P": 8, "n": 2048, "C": 320}
+
+
+def measure_moe_kernels(gen) -> dict:
+    """a2a_mm_kernel and mm_a2a_kernel at the Switch-Base-8 shapes of phase
+    3e (f32): dispatch x (8, 8, 320, 768) with w_in (8, 1, 768, 3072),
+    combine h (8, 1, 2560, 3072) with w_out (8, 1, 3072, 768). Bounds: the
+    larger of the bytes (inputs read once, the output written once) over
+    3.35 TB/s and the 2 P (P C) K N f32 operations over the CUDA cores' f32
+    rate (:func:`f32_peak_flops`); the tensor cores' TF32 rate is the later
+    target. Yardstick: the unfused pair (permute, then ``torch.einsum``)."""
+    import torch
+    from accl_tpu_torch.ops import collective_alltoall as ca
+
+    P, E, C, d, h = (SWITCH[k] for k in ("P", "E", "C", "d", "h"))
+    el = E // P
+    peak = f32_peak_flops()
+    log(f"  f32 CUDA-core peak {peak / 1e12!r} TFLOP/s (SMs x 128 x 2 x max "
+        f"SM clock); TF32 tensor-core peak {TF32_TC_FLOPS / 1e12!r}")
+    res = {}
+
+    def record(name, got, want, mag, k, a, b, fn_kernel, fn_plain, fn_lib):
+        err = (got - want).abs()
+        if bool((err > f32_sum_bound(k, mag)).any()):
+            fail(f"{name} outside the f32 sum bound at the main-path shape")
+        flops = 2 * P * el * (P * C) * a.shape[-1] * b.shape[-1]
+        nbytes = (a.numel() + b.numel() + got.numel()) * 4
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops = flops / peak * 1e3
+        res[name] = {
+            "shape": [list(a.shape), list(b.shape)],
+            "max_abs_err": err.max().item(),
+            "ms": time_ms(fn_kernel, 10), "plain_ms": time_ms(fn_plain, 10),
+            "library_ms": time_ms(fn_lib, 10),
+            "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "tensor_core_bound_ms": max(by_bytes,
+                                        flops / TF32_TC_FLOPS * 1e3)}
+        r = res[name]
+        log(f"  {name} {tuple(a.shape)} x {tuple(b.shape)}: kernel "
+            f"{r['ms']!r} ms, plain {r['plain_ms']!r} ms, library "
+            f"{r['library_ms']!r} ms, bound {r['bound_ms']!r} ms "
+            f"({r['bound_by']}; TF32 tensor cores "
+            f"{r['tensor_core_bound_ms']!r} ms), max_abs_err "
+            f"{r['max_abs_err']!r}")
+
+    x = torch.randn((P, E, C, d), generator=gen, device="cuda")
+    w = torch.randn((P, el, d, h), generator=gen, device="cuda") * d ** -0.5
+    record("a2a_mm_kernel", ca.a2a_mm(x, w), ca.plain_a2a_mm(x, w),
+           ca.plain_a2a_mm(x.abs(), w.abs()), d, x, w,
+           lambda: ca.a2a_mm(x, w), lambda: ca.plain_a2a_mm(x, w),
+           lambda: ca.xla_alltoall_matmul(x, w))
+    hx = torch.relu(ca.plain_a2a_mm(x, w))
+    wo = torch.randn((P, el, h, d), generator=gen, device="cuda") * h ** -0.5
+    record("mm_a2a_kernel", ca.mm_a2a(hx, wo), ca.plain_mm_a2a(hx, wo),
+           ca.plain_mm_a2a(hx.abs(), wo.abs()), h, hx, wo,
+           lambda: ca.mm_a2a(hx, wo), lambda: ca.plain_mm_a2a(hx, wo),
+           lambda: ca.xla_matmul_alltoall(hx, wo))
+    del x, w, hx, wo
+    torch.cuda.empty_cache()
+    return res
+
+
 #: 32-bit integer operations of ``sr_kernel`` per element: the index
 #: multiply, xor, the hash's three xor-shifts and two multiplies, the
 #: NaN test (and, compare), the add, mask and shift of the rounding
@@ -564,6 +804,7 @@ SR_INT_OPS = 16
 
 def wrappers() -> dict:
     """Every kernel's launch-counting wrapper, by kernel name."""
+    from accl_tpu_torch.ops import collective_alltoall as ca
     from accl_tpu_torch.ops import compression as cp
     from accl_tpu_torch.ops import reduce_ops as ro
     from accl_tpu_torch.parallel import pallas_chunked as pc
@@ -577,7 +818,10 @@ def wrappers() -> dict:
             "sr_kernel": cp.pallas_compress_stochastic,
             "bcast_relay_kernel": pc.chunked_bcast,
             "scatter_relay_kernel": pc.chunked_scatter,
-            "gather_relay_kernel": pc.chunked_gather}
+            "gather_relay_kernel": pc.chunked_gather,
+            "alltoall_phase_kernel": pc.chunked_alltoall,
+            "a2a_mm_kernel": ca.a2a_mm,
+            "mm_a2a_kernel": ca.mm_a2a}
 
 
 def counts() -> dict:
@@ -988,6 +1232,145 @@ def rooted_paths(gen, big_ok: bool) -> dict:
     return counts()
 
 
+def alltoall_paths(gen, big_ok: bool) -> dict:
+    """Phase 3d: ``ACCL.alltoall`` (f32) at world 8 through the host API,
+    payloads generated and kept on the card. Sizes are per-rank send
+    buffers; AUTO selects on the per-destination chunk. Returns the launch
+    counts of this part."""
+    import torch
+    from accl_tpu_torch import ACCL, Algorithm, dataType, operation
+    from accl_tpu_torch.parallel import algorithms
+
+    P = 8
+    f32 = dataType.float32
+    acc = ACCL(world=P)
+    reset_counts()
+
+    def run(nbytes, algo=None, wire=False, iters=3):
+        count = max(1, nbytes // 4 // P)
+        s = acc.create_buffer(count * P, f32)
+        s.device_store(torch.randn((P, count * P), generator=gen,
+                                   device="cuda"))
+        r = acc.create_buffer(count * P, f32)
+        kw = {"from_device": True, "to_device": True}
+        if algo is not None:
+            kw["algorithm"] = algo
+        if wire:
+            kw["compress_dtype"] = dataType.bfloat16
+        c0 = counts()
+        p50 = p50_call(lambda: acc.alltoall(s, r, count, **kw), iters)
+        c = counts()
+        fired = {k: c[k] - c0[k] for k in c if c[k] - c0[k]}
+        resolved = algorithms.select(operation.alltoall, count * 4,
+                                     acc.comms[0], acc.config, algo).value
+        sent = s.data.view(P, P, count)
+        got = r.data.view(P, P, count)
+        err = 0.0
+        for q in range(P):                # rank q's slot p holds rank p's q
+            want = sent[:, q]
+            if wire:
+                want = want.to(torch.bfloat16).float()
+                if resolved != "xla":
+                    want[q] = sent[q, q]
+            if not torch.equal(got[q], want):
+                fail(f"alltoall {nbytes} B {resolved} wire={wire}: rank {q} "
+                     f"holds wrong chunks")
+            err = max(err, (got[q] - sent[:, q]).abs().max().item())
+        log(f"alltoall {count * P * 4:>10} B/rank"
+            + (" wire bf16" if wire else "")
+            + f": p50 {p50 * 1e6!r} us, algorithm {resolved}, launches "
+            f"{json.dumps(fired)}, max|err| {err!r}")
+        del s, r, sent, got
+        torch.cuda.empty_cache()
+        return resolved, fired
+
+    top = GIB if big_ok else 256 * MIB
+    for nbytes in [4 * 4 ** i for i in range(15)]:
+        if nbytes > top:
+            break
+        iters = 10 if nbytes <= 16 * MIB else (5 if nbytes <= 64 * MIB
+                                               else 3)
+        resolved, fired = run(nbytes, iters=iters)
+        ran = fired.get("alltoall_phase_kernel", 0) > 0
+        if ran != (resolved == "pallas"):
+            fail(f"AUTO alltoall at {nbytes} B: {resolved}, launches {fired}")
+    for algo in ("xla", "flat", "pallas"):
+        run(64 * MIB, Algorithm(algo))
+    _, fired = run(64 * MIB, Algorithm.PALLAS, wire=True)
+    if fired.get("alltoall_phase_kernel", 0) == 0:
+        fail("PALLAS alltoall with a bf16 wire did not launch "
+             "alltoall_phase_kernel")
+    return counts()
+
+
+def moe_paths(gen, kernel_ms: dict) -> dict:
+    """Phase 3e: the MoE forward at the full width of Switch-Base-8
+    (:data:`SWITCH`; random weights from a seed), world 8 on the card, the
+    fused path (``overlap=True``, both MoE kernels must launch) and the
+    unfused baseline (``overlap=False``, neither may), checked against each
+    other and against the float64 ``reference_moe``; then the fused
+    dispatch against the unfused pair at the lane shape. ``kernel_ms``:
+    the two kernels' times at these shapes (phase 2). Returns the launch
+    counts of this part."""
+    import torch
+    from accl_tpu_torch import Communicator
+    from accl_tpu_torch.models import moe
+    from accl_tpu_torch.ops import collective_alltoall as ca
+
+    P, E, C, d, h, n = (SWITCH[k] for k in ("P", "E", "C", "d", "h", "n"))
+    comm = Communicator(P, "cuda")
+    params = moe.shard_params(moe.init_params(gen, comm, d, h, E), comm)
+    x = torch.randn((P, n, d), generator=gen, device="cuda")
+    fused = moe.build_moe_forward(comm, E, C, overlap=True)
+    base = moe.build_moe_forward(comm, E, C, overlap=False)
+    reset_counts()
+    c0 = counts()
+    p50_f = p50_call(lambda: fused(params, x), 5)
+    c1 = counts()
+    p50_b = p50_call(lambda: base(params, x), 5)
+    c2 = counts()
+    f_fired = {k: c1[k] - c0[k] for k in c1 if c1[k] - c0[k]}
+    b_fired = {k: c2[k] - c1[k] for k in c2 if c2[k] - c1[k]}
+    if not f_fired.get("a2a_mm_kernel") or not f_fired.get("mm_a2a_kernel"):
+        fail(f"the fused MoE forward did not launch both kernels: {f_fired}")
+    if b_fired:
+        fail(f"the MoE baseline launched kernels: {b_fired}")
+    yf, yb = fused(params, x), base(params, x)
+    if not bool(torch.isfinite(yf).all()) or tuple(yf.shape) != (P, n, d):
+        fail("MoE fused output not finite or misshapen")
+    ref = torch.from_numpy(moe.reference_moe(params, x, E, C)).to("cuda")
+    # fused and baseline run f32 on the card: rtol 1e-5, atol 1e-6. Against
+    # float64 both carry f32 rounding over sums of d = 768 and h = 3072
+    # products (about sqrt(3072) 2^-24 = 3.3e-6 of outputs of magnitude
+    # up to a few units): atol 1e-5.
+    errs = {}
+    for name, a, b, atol in (("fused - baseline", yf, yb, 1e-6),
+                             ("fused - f64", yf.double(), ref, 1e-5),
+                             ("baseline - f64", yb.double(), ref, 1e-5)):
+        diff = (a - b).abs()
+        errs[name] = diff.max().item()
+        bad = int((diff > atol + 1e-5 * b.abs()).sum())
+        if bad:
+            fail(f"MoE {name}: {bad} elements outside rtol 1e-5 atol "
+                 f"{atol} (max|diff| {errs[name]!r})")
+    tokens = P * n
+    log(f"moe Switch-Base-8 world {P}, {n} tokens/rank, C {C}: fused p50 "
+        f"{p50_f * 1e6!r} us ({tokens / p50_f!r} tokens/s), launches "
+        f"{json.dumps(f_fired)}, kernels {kernel_ms['a2a_mm_kernel']!r} + "
+        f"{kernel_ms['mm_a2a_kernel']!r} ms; baseline p50 {p50_b * 1e6!r} us "
+        f"({tokens / p50_b!r} tokens/s); max|diff| {json.dumps(errs)}")
+    del yf, yb, ref
+    # the lane shape (bench/lanes.py): e_local 2, C 128, d 256, h 512
+    xl = torch.randn((P, 2 * P, 128, 256), generator=gen, device="cuda")
+    wl = torch.randn((P, 2, 256, 512), generator=gen, device="cuda")
+    t_f = p50_call(lambda: ca.alltoall_matmul_body(xl, wl, overlap=True), 10)
+    t_u = p50_call(lambda: ca.xla_alltoall_matmul(xl, wl), 10)
+    log(f"moe lane shape (2, 128, 256, 512) world {P}: fused dispatch p50 "
+        f"{t_f * 1e6!r} us, unfused pair (all-to-all + einsum) p50 "
+        f"{t_u * 1e6!r} us")
+    return counts()
+
+
 # ---------------------------------------------------------------------------
 
 REPLACES = {
@@ -1001,18 +1384,25 @@ REPLACES = {
     "bcast_relay_kernel": "accl_tpu/parallel/pallas_chunked.py:430",
     "scatter_relay_kernel": "accl_tpu/parallel/pallas_chunked.py:570",
     "gather_relay_kernel": "accl_tpu/parallel/pallas_chunked.py:856",
+    "alltoall_phase_kernel": "accl_tpu/parallel/pallas_chunked.py:710",
+    "a2a_mm_kernel": "accl_tpu/ops/collective_alltoall.py:230",
+    "mm_a2a_kernel": "accl_tpu/ops/collective_alltoall.py:349",
 }
 SOURCE = {"ring_rs_kernel": "ring.cu", "ring_ag_kernel": "ring.cu",
           "chunked_rs_kernel": "ring.cu", "chunked_ag_kernel": "ring.cu",
           "combine_kernel": "plugins.cu", "cast_kernel": "plugins.cu",
           "sr_kernel": "plugins.cu", "bcast_relay_kernel": "ring.cu",
-          "scatter_relay_kernel": "ring.cu", "gather_relay_kernel": "ring.cu"}
+          "scatter_relay_kernel": "ring.cu", "gather_relay_kernel": "ring.cu",
+          "alltoall_phase_kernel": "ring.cu", "a2a_mm_kernel": "a2a.cu",
+          "mm_a2a_kernel": "a2a.cu"}
 #: the part of phase 3 whose launch counts each kernel's entry reports
 PART = {"ring_rs_kernel": "allreduce", "ring_ag_kernel": "allreduce",
         "chunked_rs_kernel": "allreduce", "chunked_ag_kernel": "allreduce",
         "combine_kernel": "slice2", "cast_kernel": "slice2",
         "sr_kernel": "slice2", "bcast_relay_kernel": "rooted",
-        "scatter_relay_kernel": "rooted", "gather_relay_kernel": "rooted"}
+        "scatter_relay_kernel": "rooted", "gather_relay_kernel": "rooted",
+        "alltoall_phase_kernel": "alltoall", "a2a_mm_kernel": "moe",
+        "mm_a2a_kernel": "moe"}
 
 
 def main() -> int:
@@ -1041,14 +1431,21 @@ def main() -> int:
     check_kernels(gen)
     check_plugin_kernels(gen)
     check_relay_kernels(gen)
+    check_alltoall_kernels(gen)
+    check_moe_kernels(gen)
     total = torch.cuda.get_device_properties(0).total_memory
     big_ok = total >= 60 * GIB
     meas = measure_kernels(gen, big_ok)
     meas.update(measure_plugin_kernels(gen))
     meas.update(measure_relay_kernels(gen, big_ok))
+    meas.update(measure_alltoall_kernel(gen, big_ok))
+    meas.update(measure_moe_kernels(gen))
 
     parts = {"allreduce": main_path(gen), "slice2": slice2_paths(gen),
-             "rooted": rooted_paths(gen, big_ok)}
+             "rooted": rooted_paths(gen, big_ok),
+             "alltoall": alltoall_paths(gen, big_ok),
+             "moe": moe_paths(gen, {k: meas[k]["ms"] for k in
+                                    ("a2a_mm_kernel", "mm_a2a_kernel")})}
     launches = {k: parts[PART[k]][k] for k in REPLACES}
     for k, v in launches.items():
         if v <= 0:
@@ -1064,8 +1461,9 @@ def main() -> int:
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
             "shape": m["shape"]}
-        if "ring_bound_ms" in m:
-            entry["ring_bound_ms"] = m["ring_bound_ms"]
+        for extra in ("ring_bound_ms", "tensor_core_bound_ms"):
+            if extra in m:
+                entry[extra] = m[extra]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

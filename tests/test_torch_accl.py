@@ -91,6 +91,29 @@ def test_allreduce_matches_jax(jacc, tacc):
                    **tkw)
         assert _algo(tacc, "allreduce") == algo, (count, comp)
         assert np.array_equal(want, got), (count, comp)
+    _odd_world_allreduce()
+
+
+def _odd_world_allreduce():
+    """World 3: AUTO (the one-shot program) and the VMEM-range ring
+    kernels, bit-equal to the JAX package."""
+    jacc = accl_tpu.ACCL(devices=jax.devices()[:3],
+                         config=JCfg(transport=JT.ICI))
+    tacc = at.ACCL(world=3, device="cpu",
+                   config=at.ACCLConfig(transport=at.TransportBackend.ICI))
+    for count, algo in ((4000, None), (3000, "pallas")):
+        x = _data(count, (3, count))
+        jkw = dict(count=count, function=JrF.SUM)
+        tkw = dict(count=count, function=at.reduceFunction.SUM)
+        if algo:
+            jkw["algorithm"] = JAlgo(algo)
+            tkw["algorithm"] = at.Algorithm(algo)
+        want = _run(jacc, "allreduce", count, count, x, JdT.float32, **jkw)
+        got = _run(tacc, "allreduce", count, count, x, at.dataType.float32,
+                   **tkw)
+        assert np.array_equal(want, got), ("world 3", count, algo)
+    jacc.deinit()
+    tacc.deinit()
 
 
 def test_reduce_scatter_and_allgather_match_jax(jacc, tacc):

@@ -1,12 +1,14 @@
-"""The port's CUDA kernels (the ring kernels, the rooted relays and the
-plugin lanes) against their plain PyTorch versions on the card: bit-equal
-(``torch.equal``, or the raw bits where NaN can occur). These tests need an NVIDIA GPU with
-``nvcc`` (the kernels build at first use); where no card is visible they
-skip. On the card, where JAX is not installed, skip the suite's conftest:
+"""The port's CUDA kernels (the ring kernels, the rooted relays, the
+all-to-all, the plugin lanes and the fused MoE dispatch and combine)
+against their plain PyTorch versions on the card: bit-equal
+(``torch.equal``, or the raw bits where NaN can occur; the MoE kernels on
+integer-valued operands). This test needs an NVIDIA GPU with ``nvcc`` (the
+kernels build at first use); where no card is visible it skips. On the
+card, where JAX is not installed, skip the suite's conftest:
 ``pytest --noconftest tests/test_torch_cuda.py -m cuda``.
 
-Each test loops over its cases and names the failing one in its message,
-so the suite adds few items to the tier-1 collection."""
+One test loops over every case and names the failing one in its message,
+so the suite adds one item to the tier-1 collection."""
 import math
 
 import pytest
@@ -59,7 +61,18 @@ def _specials(n: int, gen) -> torch.Tensor:
 WIRES = [(torch.bfloat16, None), (torch.float16, None), (torch.int8, 10.0)]
 
 
-def test_reduce_scatter_kernels(gen):
+def test_ring_kernels_on_card(gen, monkeypatch):
+    """Every kernel against its plain version, then the host API on the
+    card against the CPU, then the spin timeouts (last: they patch the
+    spin bound)."""
+    _reduce_scatter_kernels(gen)
+    _allgather_kernels(gen)
+    _alltoall_kernels(gen)
+    _moe_kernels(gen)
+    _accl_on_card(gen, monkeypatch)
+
+
+def _reduce_scatter_kernels(gen):
     """ring_rs_kernel over P in {2, 3, 8}, every dtype, SUM and MAX, at a
     ragged length, and MAX on +-0 / NaN; chunked_rs_kernel with each wire,
     both directions; then the plugin combine kernel (the other fold)."""
@@ -124,7 +137,7 @@ def _combine_kernel_cases(gen):
                     (dtype, n, func.name, "misaligned")
 
 
-def test_allgather_kernels(gen):
+def _allgather_kernels(gen):
     """ring_ag_kernel and chunked_ag_kernel, then the rooted relays (their
     transport cousins), then the plugin cast and stochastic-round kernels
     (the wire)."""
@@ -199,7 +212,7 @@ def _cast_and_round_cases(gen):
                           cp.plain_compress_stochastic(rows, seeds)), n
 
 
-def test_accl_allreduce_on_card(gen, monkeypatch):
+def _accl_on_card(gen, monkeypatch):
     """The host API on the card against the same program on the CPU, on
     the flat, ring-kernel and segmented-kernel paths, each call completed
     by its request, and the rooted collectives below and above the relays'
@@ -224,6 +237,7 @@ def test_accl_allreduce_on_card(gen, monkeypatch):
             out[dev] = r.data.cpu()
         assert torch.equal(out["cuda"], out["cpu"]), nbytes
     _rooted_on_card(gen)
+    _alltoall_and_moe_on_card(gen)
 
     # with a zero spin bound every hop that has to wait times out: the
     # launches still return, and the call's request raises at wait
@@ -247,6 +261,94 @@ def test_accl_allreduce_on_card(gen, monkeypatch):
     with pytest.raises(at.ACCLError) as ei:
         req.wait()
     assert ei.value.code == at.errorCode.KRNL_TIMEOUT_STS_ERROR
+    req = acc.alltoall(s, d, count // 8, from_device=True, to_device=True,
+                       run_async=True, algorithm=at.Algorithm.PALLAS)
+    with pytest.raises(at.ACCLError) as ei:
+        req.wait()
+    assert ei.value.code == at.errorCode.KRNL_TIMEOUT_STS_ERROR
+
+
+def _alltoall_kernels(gen):
+    """alltoall_phase_kernel against its plain version, by bits: P in {2, 3,
+    8}, one and three segments of a ragged length, 1-, 2-, 4- and 8-byte
+    elements (f32 with NaN and +-0). Each rank's own slot, which the kernel
+    leaves unwritten, is not compared."""
+    from accl_tpu_torch.parallel import pallas_chunked as pc
+    for P in (2, 3, 8):
+        off = ~torch.eye(P, dtype=torch.bool, device="cuda")
+        for dtype in (torch.int8, torch.bfloat16, torch.float32,
+                      torch.int64):
+            for C in (1, 3):
+                x = _specials(P * P * C * 777, gen).view(P, P, C, 777)
+                x = x.to(dtype) if dtype.is_floating_point else \
+                    x.nan_to_num(0.0).mul(50).to(dtype)
+                assert _same_bits(pc.chunked_alltoall(x)[off],
+                                  pc.plain_chunked_alltoall(x)[off]), \
+                    (P, dtype, C)
+
+
+def _moe_kernels(gen):
+    """a2a_mm_kernel and mm_a2a_kernel against their plain versions on
+    integer-valued operands (exact): worlds 2, 3 and 8, the aligned and an
+    uneven shape, f32 and bf16 token payloads, the combine rounded to f32,
+    bf16 and f16."""
+    from accl_tpu_torch.ops import collective_alltoall as ca
+
+    def ints(shape, lo=-4, hi=5):
+        return torch.randint(lo, hi, shape, generator=gen, device="cuda") \
+            .float()
+
+    for P in (2, 3, 8):
+        for el, C, d, h in ((2, 8, 128, 128), (2, 5, 72, 40)):
+            case = (P, el, C, d, h)
+            x, w = ints((P, P * el, C, d)), ints((P, el, d, h))
+            for xdt in (torch.float32, torch.bfloat16):
+                xx = x.to(xdt)
+                assert torch.equal(ca.a2a_mm(xx, w),
+                                   ca.plain_a2a_mm(xx, w)), (case, xdt)
+            hx, wo = ints((P, el, P * C, h), -9, 10), ints((P, el, h, d))
+            for odt in (torch.float32, torch.bfloat16, torch.float16):
+                assert torch.equal(ca.mm_a2a(hx, wo, odt),
+                                   ca.plain_mm_a2a(hx, wo, odt)), (case, odt)
+
+
+def _alltoall_and_moe_on_card(gen):
+    """ACCL.alltoall in its three families and the MoE forward (fused and
+    baseline) on the card against the same calls on the CPU: the
+    all-to-all bit-equal, the MoE layer within rtol 1e-5 / atol 1e-6 (the
+    f32 matmuls sum in another order)."""
+    import accl_tpu_torch as at
+    from accl_tpu_torch.models import moe
+    f32 = at.dataType.float32
+    n = (16 << 20) // 4 // 8
+    x = _make((8, 8 * n), torch.float32, gen)
+    for algo in ("xla", "flat", "pallas"):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            acc = at.ACCL(world=8, device=dev, config=at.ACCLConfig(
+                transport=at.TransportBackend.ICI))
+            s, r = acc.create_buffer(8 * n, f32), acc.create_buffer(8 * n,
+                                                                    f32)
+            s.device_store(x.to(dev))
+            acc.alltoall(s, r, n, from_device=True, to_device=True,
+                         algorithm=at.Algorithm(algo))
+            out[dev] = r.data.cpu()
+        assert torch.equal(out["cuda"], out["cpu"]), algo
+    g = torch.Generator(device="cpu")
+    g.manual_seed(3)
+    comm = at.Communicator(4, "cpu")
+    params = moe.init_params(g, comm, 128, 256, 8)
+    tokens = torch.randn((4, 64, 128), generator=g)
+    for overlap in (True, False):
+        got = {}
+        for dev in ("cuda", "cpu"):
+            c = at.Communicator(4, dev)
+            p = moe.shard_params(params, c)
+            got[dev] = moe.build_moe_forward(c, 8, 24, top_k=2,
+                                             overlap=overlap)(
+                p, tokens.to(dev)).cpu()
+        torch.testing.assert_close(got["cuda"], got["cpu"], rtol=1e-5,
+                                   atol=1e-6, msg=f"moe overlap={overlap}")
 
 
 def _rooted_on_card(gen):
