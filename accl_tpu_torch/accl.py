@@ -81,6 +81,12 @@ class ACCL:
         leaves the config as it was)."""
         hierarchical.set_dcn_wire_dtype(cfg.dcn_wire_dtype)
         _cm_ops.set_wire_dtype(cfg.cmatmul_wire_dtype)
+        _cm_ops.set_overlap_enabled(cfg.cmatmul_overlap)
+        _cm_ops.set_overlap_thresholds(cfg.ag_matmul_threshold,
+                                       cfg.rs_matmul_threshold)
+        _cm_ops.set_overlap_class_thresholds(
+            cfg.ag_matmul_class_thresholds, cfg.rs_matmul_class_thresholds)
+        _cm_ops.set_nblock_enabled(cfg.cmatmul_nblock)
         _a2a_ops.set_overlap_enabled(cfg.moe_overlap)
         _a2a_ops.set_overlap_threshold(cfg.a2a_matmul_threshold)
         self._config = cfg

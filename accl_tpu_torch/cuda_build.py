@@ -25,7 +25,7 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_cuda_build"
 #: sources, by library name
 SOURCES = {"ring": SRC_DIR / "ring.cu", "plugins": SRC_DIR / "plugins.cu",
-           "a2a": SRC_DIR / "a2a.cu"}
+           "a2a": SRC_DIR / "a2a.cu", "cmatmul": SRC_DIR / "cmatmul.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
@@ -138,8 +138,21 @@ def _declare_a2a(lib: ctypes.CDLL) -> None:
     lib.accl_a2a_mm.restype = c_int
 
 
+def _declare_cmatmul(lib: ctypes.CDLL) -> None:
+    c_int, c_p = ctypes.c_int, ctypes.c_void_p
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    lib.accl_cmatmul_agmm.argtypes = [c_int, c_int, u64p, u64p, u64p, c_int,
+                                      c_int, c_int, c_int, c_int, c_int,
+                                      c_int, c_p]
+    lib.accl_cmatmul_agmm.restype = c_int
+    lib.accl_cmatmul_mmrs.argtypes = [c_int, c_int, c_int, u64p, u64p, u64p,
+                                      c_int, c_int, c_int, c_int, c_int,
+                                      c_int, c_int, c_p]
+    lib.accl_cmatmul_mmrs.restype = c_int
+
+
 _DECLARE = {"ring": _declare_ring, "plugins": _declare_plugins,
-            "a2a": _declare_a2a}
+            "a2a": _declare_a2a, "cmatmul": _declare_cmatmul}
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -5,12 +5,13 @@ device. Here every rank is a row of the first axis of the tensors passed,
 so a call acts on all ranks at once.
 
 Ported so far: the MoE pair :func:`alltoall_matmul` and
-:func:`matmul_alltoall`. Still to port (ROADMAP.md queue 1, item 10):
-``rank``, ``world``, ``allreduce``, ``reduce_to``, ``bcast``, ``scatter``,
-``gather``, ``all_gather``, ``reduce_scatter``, ``all_to_all``, the
-collective matmuls (``all_gather_matmul``, ``matmul_reduce_scatter``,
-``fsdp_matmul``), ``pp_relay``, ``put_next``, ``get_prev``,
-``send_recv``, ``combine`` and ``barrier``.
+:func:`matmul_alltoall`, and the tensor-parallel collective matmuls
+:func:`all_gather_matmul`, :func:`matmul_reduce_scatter` and
+:func:`fsdp_matmul` (forward only). Still to port (ROADMAP.md queue 1, item
+10b): ``rank``, ``world``, ``allreduce``, ``reduce_to``, ``bcast``,
+``scatter``, ``gather``, ``all_gather``, ``reduce_scatter``,
+``all_to_all``, ``pp_relay``, ``put_next``, ``get_prev``, ``send_recv``,
+``combine`` and ``barrier``.
 """
 from __future__ import annotations
 
@@ -40,3 +41,41 @@ def matmul_alltoall(h, w, overlap: Optional[bool] = None,
     once."""
     from .ops import collective_alltoall as ca
     return ca.matmul_alltoall(h, w, overlap, bidirectional, wire_dtype)
+
+
+def all_gather_matmul(x, w, overlap: Optional[bool] = None,
+                      bidirectional: bool = True, wire_dtype=None):
+    """``all_gather(x, rows) @ w`` (the Megatron column-parallel forward
+    over a row-sharded LHS): x (world, m, k), w (world, k, n), out (world,
+    world*m, n) f32, through the fused kernel when its plan engages
+    (:mod:`.ops.collective_matmul`). ``overlap=None`` follows
+    ``ACCLConfig.cmatmul_overlap`` and ``ag_matmul_threshold``;
+    ``wire_dtype=None`` follows ``ACCLConfig.cmatmul_wire_dtype``. Forward
+    only: an input that requires grad raises."""
+    from .ops import collective_matmul as cm
+    return cm.all_gather_matmul(x, w, overlap, bidirectional, wire_dtype)
+
+
+def matmul_reduce_scatter(x, w, overlap: Optional[bool] = None,
+                          bidirectional: bool = True, wire_dtype=None):
+    """``reduce_scatter(x @ w, rows)`` (the row-parallel combine): x (world,
+    m, k), w (world, k, n), out (world, m/world, n) f32, each hop's partial
+    folded into the travelling accumulator by the fused kernel.
+    ``wire_dtype`` rounds the accumulator on the wire; the folds add in
+    f32. Same policy as :func:`all_gather_matmul`."""
+    from .ops import collective_matmul as cm
+    return cm.matmul_reduce_scatter(x, w, overlap, bidirectional,
+                                    wire_dtype)
+
+
+def fsdp_matmul(x, wt_shard, overlap: Optional[bool] = None,
+                bidirectional: bool = True, wire_dtype=None):
+    """The ZeRO/FSDP forward ``x @ all_gather(wt_shard).T``: x (world, m,
+    k), ``wt_shard`` (world, n/world, k) each rank's weight-column shard in
+    travel layout, out (world, m, n) f32; the parameter gather rides the
+    agmm kernel on the travelling shard. Same policy as
+    :func:`all_gather_matmul`."""
+    from .ops import collective_matmul as cm
+    yt = cm.all_gather_matmul(wt_shard, x.transpose(1, 2), overlap,
+                              bidirectional, wire_dtype)
+    return yt.transpose(1, 2)

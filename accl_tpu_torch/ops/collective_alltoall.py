@@ -390,14 +390,6 @@ def matmul_alltoall_body(h: torch.Tensor, w: torch.Tensor, *,
 # entry points
 # ---------------------------------------------------------------------------
 
-def _forward_only(what: str, *tensors) -> None:
-    if any(t.requires_grad for t in tensors):
-        raise ACCLError(errorCode.COLLECTIVE_NOT_IMPLEMENTED,
-                        f"{what}: the MoE backward is not ported yet "
-                        f"(ROADMAP.md queue 1, item 11); pass tensors that "
-                        f"do not require grad")
-
-
 def alltoall_matmul(x: torch.Tensor, w: torch.Tensor,
                     overlap: Optional[bool] = None,
                     bidirectional: bool = True, wire_dtype=None):
@@ -405,7 +397,7 @@ def alltoall_matmul(x: torch.Tensor, w: torch.Tensor,
     e_local, d, h), out (P, e_local, P*C, h) f32. ``overlap=None`` follows
     the session default and size register; False pins the unfused pair.
     ``wire_dtype=None`` follows ``ACCLConfig.cmatmul_wire_dtype``."""
-    _forward_only("alltoall_matmul", x, w)
+    cm._forward_only("alltoall_matmul", "11", x, w)
     return alltoall_matmul_body(x, w, overlap=overlap,
                                 bidirectional=bidirectional,
                                 wire_dtype=wire_dtype)
@@ -416,7 +408,7 @@ def matmul_alltoall(h: torch.Tensor, w: torch.Tensor,
                     bidirectional: bool = True, wire_dtype=None):
     """MoE combine: ``all_to_all(einsum(h, w))``, h (P, e_local, P*C, hd),
     w (P, e_local, hd, d), out (P, E, C, d) f32."""
-    _forward_only("matmul_alltoall", h, w)
+    cm._forward_only("matmul_alltoall", "11", h, w)
     return matmul_alltoall_body(h, w, overlap=overlap,
                                 bidirectional=bidirectional,
                                 wire_dtype=wire_dtype)

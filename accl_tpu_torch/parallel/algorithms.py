@@ -27,8 +27,11 @@ resolve for allreduce, reduce-scatter, all-gather, bcast, scatter, gather,
 reduce and alltoall builds; MULTIAXIS, which needs the synthesizer and which
 AUTO never selects on a single-axis mesh, raises
 ``COLLECTIVE_NOT_IMPLEMENTED``. The MoE pair (:func:`build_alltoall_matmul`,
-:func:`build_matmul_alltoall`) builds its fused kernels on PALLAS and the
-unfused pair otherwise.
+:func:`build_matmul_alltoall`) and the tensor-parallel collective matmuls
+(:func:`build_allgather_matmul`, :func:`build_matmul_reduce_scatter`,
+:func:`build_fsdp_matmul`) build their fused kernels on PALLAS and the
+unfused pair otherwise; on the intra-node tier AUTO takes PALLAS from their
+size registers up, in wire bytes (:func:`cmatmul_wire_bytes`).
 """
 from __future__ import annotations
 
@@ -63,7 +66,17 @@ _SUPPORTED = {
     operation.gather: {Algorithm.XLA, Algorithm.FLAT, Algorithm.RING,
                        Algorithm.PALLAS},
     operation.alltoall: {Algorithm.XLA, Algorithm.FLAT, Algorithm.PALLAS},
+    # the fused collective matmuls: the fused kernels or the unfused pair
+    operation.allgather_matmul: {Algorithm.XLA, Algorithm.PALLAS},
+    operation.matmul_reduce_scatter: {Algorithm.XLA, Algorithm.PALLAS},
+    operation.alltoall_matmul: {Algorithm.XLA, Algorithm.PALLAS},
+    operation.matmul_alltoall: {Algorithm.XLA, Algorithm.PALLAS},
 }
+
+#: the ops whose PALLAS register compares wire bytes
+#: (:func:`cmatmul_wire_bytes`)
+CMATMUL_OPS = (operation.allgather_matmul, operation.matmul_reduce_scatter,
+               operation.alltoall_matmul, operation.matmul_alltoall)
 
 #: the bandwidth collectives the JAX synthesizer resolves
 SYNTH_OPS = (operation.allreduce, operation.allgather,
@@ -94,6 +107,27 @@ _warned_global_fallback: set = set()
 
 def reset_global_fallback_warnings() -> None:
     _warned_global_fallback.clear()
+
+
+def cmatmul_wire_bytes(op: operation, nbytes: int, cfg: ACCLConfig,
+                       count: Optional[int] = None) -> int:
+    """Wire bytes of a collective-matmul or fused all-to-all payload under
+    the session wire dtype (``ACCLConfig.cmatmul_wire_dtype``). ``nbytes``
+    follows the op's operand-byte convention; ``count`` (elements) gives
+    the operand width, else f32 is assumed. A full-precision session, or a
+    wire at least as wide as the operand, returns ``nbytes``."""
+    name = cfg.cmatmul_wire_dtype
+    if not name:
+        return nbytes
+    from ..ops import collective_matmul as cm
+    wdt = cm._ALL_WIRE_NAMES.get(name)
+    if wdt is None:
+        return nbytes
+    wisz = cm._itemsize(wdt)
+    op_isz = (nbytes // count) if count else 4
+    if op_isz <= wisz or op_isz <= 0:
+        return nbytes
+    return (nbytes // op_isz) * wisz
 
 
 def _hier_shape(comm: Communicator, on_dcn: bool = False):
@@ -223,7 +257,14 @@ def _select_legacy(op: operation, nbytes: int, comm: Communicator,
             operation.scatter: cfg.scatter_pallas_threshold,
             operation.alltoall: cfg.alltoall_pallas_threshold,
             operation.reduce: cfg.reduce_pallas_threshold,
+            operation.allgather_matmul: cfg.ag_matmul_threshold,
+            operation.matmul_reduce_scatter: cfg.rs_matmul_threshold,
+            operation.alltoall_matmul: cfg.a2a_matmul_threshold,
+            operation.matmul_alltoall: cfg.a2a_matmul_threshold,
         }.get(op)
+        if op in CMATMUL_OPS:
+            # the registers compare wire bytes
+            nbytes = cmatmul_wire_bytes(op, nbytes, cfg, count)
         if pallas_at is not None and nbytes >= pallas_at:
             return Algorithm.PALLAS
     if op == operation.allreduce and nbytes >= cfg.hier_threshold:
@@ -494,5 +535,58 @@ def build_matmul_alltoall(comm, algo: Algorithm, bidirectional: bool = True,
         return ca.matmul_alltoall_body(h, w, overlap=overlap,
                                        bidirectional=bidirectional,
                                        wire_dtype=wire_dtype)
+
+    return prog
+
+
+def build_allgather_matmul(comm, algo: Algorithm, bidirectional: bool = True,
+                           wire_dtype=None) -> Callable:
+    """(world, m, k) row shards + (world, k, n) weight blocks -> (world,
+    world*m, n) f32: ``all_gather(x, rows) @ w``. PALLAS runs the fused
+    kernel (:mod:`..ops.collective_matmul`, resident or streaming per the
+    plan), anything else the unfused pair. ``wire_dtype`` stages the shards
+    compressed ("off" pins full precision)."""
+    from ..ops import collective_matmul as cm
+    overlap = algo == Algorithm.PALLAS
+
+    def prog(x, w):
+        return cm.all_gather_matmul_body(x, w, overlap=overlap,
+                                         bidirectional=bidirectional,
+                                         wire_dtype=wire_dtype)
+
+    return prog
+
+
+def build_matmul_reduce_scatter(comm, algo: Algorithm,
+                                bidirectional: bool = True,
+                                wire_dtype=None) -> Callable:
+    """(world, m, k) local rows + (world, k, n) weight blocks -> (world,
+    m/world, n) f32: ``reduce_scatter(x @ w, rows)``, each hop's partial
+    folded into the travelling accumulator under PALLAS."""
+    from ..ops import collective_matmul as cm
+    overlap = algo == Algorithm.PALLAS
+
+    def prog(x, w):
+        return cm.matmul_reduce_scatter_body(x, w, overlap=overlap,
+                                             bidirectional=bidirectional,
+                                             wire_dtype=wire_dtype)
+
+    return prog
+
+
+def build_fsdp_matmul(comm, algo: Algorithm, bidirectional: bool = True,
+                      wire_dtype=None) -> Callable:
+    """(world, m, k) local rows + (world, n/world, k) weight-column shards
+    in travel layout -> (world, m, n) f32: ``x @ all_gather(wt).T``, the
+    ZeRO/FSDP forward. PALLAS runs the agmm kernel on the travelling weight
+    shard, anything else the unfused gather and matmul."""
+    from ..ops import collective_matmul as cm
+    overlap = algo == Algorithm.PALLAS
+
+    def prog(x, wt):
+        yt = cm.all_gather_matmul_body(wt, x.transpose(1, 2), overlap=overlap,
+                                       bidirectional=bidirectional,
+                                       wire_dtype=wire_dtype)
+        return yt.transpose(1, 2)
 
     return prog

@@ -5,8 +5,8 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, in order;
 any failure exits non-zero and nothing is caught and skipped:
 
 1. build the kernels from ``accl_tpu_torch/csrc`` (``ring.cu``,
-   ``plugins.cu`` and ``a2a.cu``, one ``nvcc`` each, in parallel) and print
-   the build time, the card and its power limit;
+   ``plugins.cu``, ``a2a.cu`` and ``cmatmul.cu``, one ``nvcc`` each, in
+   parallel) and print the build time, the card and its power limit;
 2. hold every kernel against its plain PyTorch version on the card, bit
    for bit (``torch.equal``, or the raw bits where NaN can occur): the four
    ring kernels (P in {2, 8}, a ragged length, SUM and MAX, f32 / i32 /
@@ -21,9 +21,13 @@ any failure exits non-zero and nothing is caught and skipped:
    bits) and the fused MoE dispatch and combine (worlds 2, 3 and 8,
    bidirectional on and off, an aligned and an uneven shape, f32 and bf16
    wires: integer-valued operands bit-equal, random ones within the f32
-   summation bound, with TF32 off for the plain versions), then time each
-   kernel, its plain version and a one-call PyTorch yardstick at the
-   shapes of the main path;
+   summation bound, with TF32 off for the plain versions) and the
+   collective matmuls' all-gather x matmul and matmul x reduce-scatter
+   (worlds 2, 3 and 8, bidirectional on and off, an aligned and a ragged
+   shape, resident, k-blocked and accumulator-blocked plans, f32 and a
+   bf16 wire: integer operands bit-equal, random ones within the f32
+   summation bound), then time each kernel, its plain version and a
+   one-call PyTorch yardstick at the shapes of the main path;
 3. the main path, each part with every launch counter set to 0 just
    before it and read just after:
    a. ``ACCL(world=8)`` runs AUTO all-reduce, f32 SUM, from 4 B to 1 GiB
@@ -63,6 +67,15 @@ any failure exits non-zero and nothing is caught and skipped:
       unfused baseline, checked against each other and a float64
       reference; then the fused dispatch against the unfused pair at the
       repository's lane shape (e_local 2, C 128, d 256, h 512);
+   f. the tensor-parallel MLP forward at Megatron-LM 8.3B's block width
+      (hidden 3072, FFN 12288, GELU, biases), world 8 as (dp 1, tp 8),
+      2048 tokens, f32: the fused path (the stream plans: agmm_kernel once
+      and mmrs_kernel twice per forward) and the psum baseline (no
+      kernel), checked against each other (rtol 1e-5, atol 1e-5) and a
+      float64 forward (rtol 1e-5, atol 1e-4), p50 and tokens/s of each;
+      then the fused collective
+      matmuls against the unfused pair at the lane shape (m 256, k 512,
+      n 512; the resident plans);
 4. print the ``kernels`` line, the card line and, last, the device line.
 
 Exits 2 without printing a result when no CUDA device is visible.
@@ -416,6 +429,129 @@ def check_moe_kernels(gen) -> None:
     torch.cuda.synchronize()
     log(f"phase 2: {n_cases} MoE kernel-vs-plain cases (integer operands "
         f"bit-equal; random within the f32 sum bound, max|err| {worst!r})")
+
+
+def plan_budgets(op: str, m: int, k: int, n: int, P: int, bidir: bool,
+                 wire) -> dict:
+    """{mode: budget} of the port's plan for a per-rank shape: the first
+    budget of a descending ladder giving "resident", "stream" (k-blocked)
+    and "nblock" (the accumulator-blocking arm)."""
+    import torch
+    from accl_tpu_torch.ops import collective_matmul as cm
+    plan = cm.agmm_plan if op == "agmm" else cm.mmrs_plan
+    wdt = cm._resolve_wire(wire, torch.float32)
+    saved, modes = cm._VMEM_BUDGET, {}
+    try:
+        for b in (12 << 20, 512 << 10, 256 << 10, 200 << 10, 150 << 10,
+                  128 << 10, 112 << 10, 100 << 10, 96 << 10, 64 << 10,
+                  48 << 10, 32 << 10):
+            cm._VMEM_BUDGET = b
+            p = plan(m, k, n, P, torch.float32, bidir, wire_dtype=wdt)
+            if p is not None:
+                modes.setdefault("nblock" if ("mb" in p or "nb" in p)
+                                 else p["mode"], b)
+    finally:
+        cm._VMEM_BUDGET = saved
+    return modes
+
+
+class plain_kernels:
+    """Within this block the collective-matmul bodies call the kernels'
+    plain versions (with the arguments their plans give) instead of the
+    kernels, on the same CUDA tensors."""
+
+    def __enter__(self):
+        from accl_tpu_torch.ops import collective_matmul as cm
+        self.saved = (cm.agmm, cm.mmrs)
+        cm.agmm, cm.mmrs = cm.plain_agmm, cm.plain_mmrs
+
+    def __exit__(self, *exc):
+        from accl_tpu_torch.ops import collective_matmul as cm
+        cm.agmm, cm.mmrs = self.saved
+
+
+def check_cmatmul_kernels(gen) -> None:
+    """agmm_kernel and mmrs_kernel against their plain versions, each
+    driven by the all-gather x matmul and matmul x reduce-scatter bodies
+    (which pick the launches' row blocks, column blocks and channel split
+    from their plans): worlds 2, 3 and 8, bidirectional on and off (P >=
+    4), an aligned per-rank shape (m, k, n) = (64, 256, 256) and a ragged
+    one (12, 72, 40), every plan mode the budget ladder reaches (resident,
+    k-blocked stream, accumulator blocks), f32 and a bf16 wire: integer
+    operands bit-equal (with the bf16 wire past 256, so the travelling sum
+    rounds), random ones within :func:`f32_sum_bound` (full-precision
+    wire). The plain versions run with TF32 off."""
+    import torch
+    from accl_tpu_torch.ops import collective_matmul as cm
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on for float32 matmuls: the plain versions would be "
+             "the inexact side")
+
+    def ints(shape, lo, hi):
+        return torch.randint(lo, hi, shape, generator=gen,
+                             device="cuda").float()
+
+    bodies = {"agmm": cm.all_gather_matmul_body,
+              "mmrs": cm.matmul_reduce_scatter_body}
+    n_cases, worst, seen = 0, 0.0, set()
+    saved = cm._VMEM_BUDGET
+    try:
+        for P in (2, 3, 8):
+            for m, k, n in ((64, 256, 256), (12, 72, 40)):
+                for bidir in ((False, True) if P >= 4 else (False,)):
+                    for op, rows in (("agmm", m), ("mmrs", P * m)):
+                        for wire in ("off", "bf16"):
+                            modes = plan_budgets(op, rows, k, n, P, bidir,
+                                                 wire)
+                            for mode, budget in modes.items():
+                                cm._VMEM_BUDGET = budget
+                                case = f"{op} P={P} {(m, k, n)} " \
+                                    f"bidir={bidir} wire={wire} {mode}"
+                                lo, hi = ((-600, 600) if op == "agmm" and
+                                          wire == "bf16" else (-9, 10))
+                                x, w = ints((P, rows, k), lo, hi), \
+                                    ints((P, k, n), -9, 10)
+
+                                def run(a, b):
+                                    return bodies[op](a, b, overlap=True,
+                                                      bidirectional=bidir,
+                                                      wire_dtype=wire)
+
+                                got = run(x, w)
+                                with plain_kernels():
+                                    want = run(x, w)
+                                if not torch.equal(got, want):
+                                    fail(f"{op} kernel != plain ({case})")
+                                seen.add((op, mode))
+                                n_cases += 1
+                                if wire == "bf16":
+                                    continue
+                                x = torch.randn((P, rows, k), generator=gen,
+                                                device="cuda")
+                                w = torch.randn((P, k, n), generator=gen,
+                                                device="cuda")
+                                got = run(x, w)
+                                with plain_kernels():
+                                    want = run(x, w)
+                                    mag = run(x.abs(), w.abs())
+                                err = (got - want).abs()
+                                K = k if op == "agmm" else P * k
+                                if bool((err > f32_sum_bound(K, mag)).any()):
+                                    fail(f"{op} kernel random f32 outside "
+                                         f"the f32 sum bound ({case})")
+                                worst = max(worst, err.max().item())
+                                n_cases += 1
+    finally:
+        cm._VMEM_BUDGET = saved
+    for op in ("agmm", "mmrs"):
+        for mode in ("resident", "stream", "nblock"):
+            if (op, mode) not in seen:
+                fail(f"phase 2 never ran {op} in its {mode} plan")
+    torch.cuda.synchronize()
+    log(f"phase 2: {n_cases} collective-matmul kernel-vs-plain cases over "
+        f"{sorted(seen)} (integer operands bit-equal; random within the f32 "
+        f"sum bound, max|err| {worst!r})")
 
 
 def measure_kernels(gen, big_ok: bool) -> dict:
@@ -792,6 +928,129 @@ def measure_moe_kernels(gen) -> dict:
     return res
 
 
+#: Megatron-LM 8.3B (Shoeybi et al., 2019, Table 1): hidden 3072, FFN 4 x
+#: 3072, 8-way tensor parallel, sequence 1024; two sequences (2048 tokens),
+#: one block, dp 1
+MEGATRON = {"d": 3072, "h": 12288, "tp": 8, "tokens": 2048}
+#: the collective-matmul lane shape (per-rank m, k, n; bench_cmatmul's
+#: default)
+CMATMUL_LANE = (256, 512, 512)
+
+
+def cmatmul_operands(gen, P: int, m: int, k: int, n: int):
+    """Random f32 operands of one agmm and one mmrs call at a per-rank
+    shape: x (P, m, k), the mmrs rows (P, P m, k), w (P, k, n) scaled by
+    k^-1/2."""
+    import torch
+    x = torch.randn((P, m, k), generator=gen, device="cuda")
+    xr = torch.randn((P, P * m, k), generator=gen, device="cuda")
+    w = torch.randn((P, k, n), generator=gen, device="cuda") * k ** -0.5
+    return x, xr, w
+
+
+def measure_cmatmul_kernels(gen) -> dict:
+    """agmm_kernel and mmrs_kernel at the shapes phase 3f gives them at
+    Megatron-LM 8.3B's width (f32, P 8): agmm x (8, 256, 3072) with w1's
+    column blocks (8, 3072, 1536) in one launch (the stream plan's nmb 1);
+    mmrs the activations (8, 2048, 1536) with w2's row blocks (8, 1536,
+    3072) in two launches, one per 1536-column block (nnb 2), timed
+    together as one call. Bounds: the larger of the bytes (inputs read
+    once, the output written once) over 3.35 TB/s and the 2 P (P m) k n
+    f32 operations over the CUDA cores' rate (:func:`f32_peak_flops`); the
+    TF32 tensor cores' is the later target. Library: ``torch.matmul(x.
+    reshape(P*m, k), w)`` for agmm and ``torch.matmul(x, w).view(P, P, mc,
+    n).sum(0)`` for mmrs. Then both at the lane shape (the resident plans),
+    logged with their bounds."""
+    import torch
+    from accl_tpu_torch.ops import collective_matmul as cm
+
+    peak = f32_peak_flops()
+    P = MEGATRON["tp"]
+    res = {}
+
+    def calls(m, k, n):
+        """(kernel, plain, library, flops, bytes, K) per kernel name at a
+        per-rank agmm shape (m, k, n); mmrs takes (P m, n) x (n, k)."""
+        x, xr, w = cmatmul_operands(gen, P, m, k, n)
+        wr = torch.randn((P, n, k), generator=gen, device="cuda") \
+            * n ** -0.5
+        hr = xr[..., :n].contiguous()
+        ag_plan = cm.agmm_plan(m, k, n, P, torch.float32, True)
+        rs_plan = cm.mmrs_plan(P * m, n, k, P, torch.float32, True)
+        ag_half = min(ag_plan.get("mb", ag_plan["mp"]) // 2, m)
+        nb = rs_plan.get("nb", rs_plan["np"])
+        blocks = [(j * nb, min((j + 1) * nb, k))
+                  for j in range(rs_plan.get("nnb", 1))]
+        split = min(rs_plan["cp"] // 2, m)
+        ag_k, ag_p = (torch.empty((P, P * m, n), device="cuda")
+                      for _ in range(2))
+        rs_k, rs_p = (torch.empty((P, m, k), device="cuda")
+                      for _ in range(2))
+
+        def rs(fn, out):
+            for cols in blocks:
+                fn(hr, wr, out, cols, split)
+            return out
+
+        return {
+            "agmm_kernel": (
+                lambda: cm.agmm(x, w, ag_k, (0, m), ag_half),
+                lambda: cm.plain_agmm(x, w, ag_p, (0, m)),
+                lambda: torch.matmul(x.reshape(P * m, k), w),
+                lambda: cm.plain_agmm(x.abs(), w.abs()),
+                2 * P * (P * m) * k * n,
+                (x.numel() + w.numel() + ag_k.numel()) * 4, k,
+                [list(x.shape), list(w.shape)], ag_plan),
+            "mmrs_kernel": (
+                lambda: rs(cm.mmrs, rs_k), lambda: rs(cm.plain_mmrs, rs_p),
+                lambda: torch.matmul(hr, wr).view(P, P, m, k).sum(0),
+                lambda: cm.plain_mmrs(hr.abs(), wr.abs(), split=split),
+                2 * P * (P * m) * n * k,
+                (hr.numel() + wr.numel() + rs_k.numel()) * 4, P * n,
+                [list(hr.shape), list(wr.shape)], rs_plan)}
+
+    tokens = MEGATRON["tokens"]
+    mega = calls(tokens // P, MEGATRON["d"], MEGATRON["h"] // P)
+    for name, (kern, plain, lib, absf, flops, nbytes, K, shape,
+               plan) in mega.items():
+        got, want, mag = kern(), plain(), absf()
+        err = (got - want).abs()
+        if bool((err > f32_sum_bound(K, mag)).any()):
+            fail(f"{name} outside the f32 sum bound at the main-path shape")
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops = flops / peak * 1e3
+        res[name] = {
+            "shape": shape, "max_abs_err": err.max().item(),
+            "ms": time_ms(kern, 5), "plain_ms": time_ms(plain, 5),
+            "library_ms": time_ms(lib, 5),
+            "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "tensor_core_bound_ms": max(by_bytes,
+                                        flops / TF32_TC_FLOPS * 1e3)}
+        r = res[name]
+        log(f"  {name} {shape} ({plan['mode']}, kb {plan['kb']}, launches "
+            f"{plan.get('nmb', plan.get('nnb', 1))}): kernel {r['ms']!r} ms, "
+            f"plain {r['plain_ms']!r} ms, library {r['library_ms']!r} ms, "
+            f"bound {r['bound_ms']!r} ms ({r['bound_by']}; TF32 tensor "
+            f"cores {r['tensor_core_bound_ms']!r} ms), max_abs_err "
+            f"{r['max_abs_err']!r}")
+        del got, want, mag
+    del mega
+    torch.cuda.empty_cache()
+    lane = calls(*CMATMUL_LANE)
+    for name, (kern, plain, lib, _, flops, nbytes, _, shape,
+               plan) in lane.items():
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"  {name} lane shape {shape} ({plan['mode']}): kernel "
+            f"{time_ms(kern, 10)!r} ms, plain {time_ms(plain, 10)!r} ms, "
+            f"library {time_ms(lib, 10)!r} ms, bound "
+            f"{max(by_bytes, flops / peak * 1e3)!r} ms (TF32 tensor cores "
+            f"{max(by_bytes, flops / TF32_TC_FLOPS * 1e3)!r} ms)")
+    del lane
+    torch.cuda.empty_cache()
+    return res
+
+
 #: 32-bit integer operations of ``sr_kernel`` per element: the index
 #: multiply, xor, the hash's three xor-shifts and two multiplies, the
 #: NaN test (and, compare), the add, mask and shift of the rounding
@@ -805,6 +1064,7 @@ SR_INT_OPS = 16
 def wrappers() -> dict:
     """Every kernel's launch-counting wrapper, by kernel name."""
     from accl_tpu_torch.ops import collective_alltoall as ca
+    from accl_tpu_torch.ops import collective_matmul as cm
     from accl_tpu_torch.ops import compression as cp
     from accl_tpu_torch.ops import reduce_ops as ro
     from accl_tpu_torch.parallel import pallas_chunked as pc
@@ -821,7 +1081,9 @@ def wrappers() -> dict:
             "gather_relay_kernel": pc.chunked_gather,
             "alltoall_phase_kernel": pc.chunked_alltoall,
             "a2a_mm_kernel": ca.a2a_mm,
-            "mm_a2a_kernel": ca.mm_a2a}
+            "mm_a2a_kernel": ca.mm_a2a,
+            "agmm_kernel": cm.agmm,
+            "mmrs_kernel": cm.mmrs}
 
 
 def counts() -> dict:
@@ -1371,6 +1633,94 @@ def moe_paths(gen, kernel_ms: dict) -> dict:
     return counts()
 
 
+def tp_mlp_paths(gen, kernel_ms: dict) -> dict:
+    """Phase 3f: the tensor-parallel MLP forward at Megatron-LM 8.3B's
+    block width (:data:`MEGATRON`; random weights and biases from a seed),
+    world 8 = (dp 1, tp 8) on the card, 2048 tokens, f32: the fused path
+    (``overlap=True``: the stream plans launch agmm_kernel once and
+    mmrs_kernel twice per forward) and the psum baseline (no kernel),
+    checked against each other and against a float64 forward; p50 and
+    tokens/s of each over 5 timed forwards after a warm-up. Then the lane
+    shape: the fused bodies against the unfused pair, within the f32
+    summation bound. ``kernel_ms``: the two kernels' times at these shapes
+    (phase 2). Returns the launch counts of this part."""
+    import torch
+    import torch.nn.functional as F
+    from accl_tpu_torch import Communicator
+    from accl_tpu_torch.models import mlp
+    from accl_tpu_torch.ops import collective_matmul as cm
+
+    d, h, tp, n = (MEGATRON[k] for k in ("d", "h", "tp", "tokens"))
+    comm = Communicator(tp, "cuda")
+    dense = mlp.init_params(gen, d, h)
+    dense = dense._replace(
+        b1=torch.randn((h,), generator=gen, device="cuda") * 0.1,
+        b2=torch.randn((d,), generator=gen, device="cuda") * 0.1)
+    params = mlp.shard_params(dense, comm, 1, tp)
+    x = torch.randn((n, d), generator=gen, device="cuda")
+    fused = mlp.make_forward(comm, 1, tp, overlap=True)
+    base = mlp.make_forward(comm, 1, tp, overlap=False)
+    reset_counts()
+    yf = fused(params, x)
+    c1 = counts()
+    fired = {k: v for k, v in c1.items() if v}
+    if fired != {"agmm_kernel": 1, "mmrs_kernel": 2}:
+        fail(f"one fused forward launched {fired}, not agmm_kernel once "
+             f"and mmrs_kernel twice")
+    yb = base(params, x)
+    if counts() != c1:
+        fail("the psum baseline launched a kernel")
+    p50_f = p50_call(lambda: fused(params, x), 5)
+    c2 = counts()
+    p50_b = p50_call(lambda: base(params, x), 5)
+    if counts() != c2 or c2["agmm_kernel"] != 7 or c2["mmrs_kernel"] != 14:
+        fail(f"unexpected launches over the timed forwards: {counts()}")
+    if not bool(torch.isfinite(yf).all()) or tuple(yf.shape) != (n, d):
+        fail("MLP fused output not finite or misshapen")
+    ref = F.gelu(x.double() @ dense.w1.double() + dense.b1.double(),
+                 approximate="tanh") @ dense.w2.double() + dense.b2.double()
+    # both paths run f32 sums of d = 3072 and h = 12288 products of
+    # unit-scale terms in different orders: about sqrt(12288) 2^-24 = 7e-6
+    # of outputs of magnitude up to a few units. Against each other rtol
+    # 1e-5 / atol 1e-5, against float64 rtol 1e-5 / atol 1e-4.
+    errs = {}
+    for name, a, b, atol in (("fused - f64", yf.double(), ref, 1e-4),
+                             ("baseline - f64", yb.double(), ref, 1e-4),
+                             ("fused - baseline", yf, yb, 1e-5)):
+        diff = (a - b).abs()
+        errs[name] = diff.max().item()
+        bad = int((diff > atol + 1e-5 * b.abs()).sum())
+        if bad:
+            fail(f"MLP {name}: {bad} elements outside rtol 1e-5 atol "
+                 f"{atol} (max|diff| {errs[name]!r})")
+    log(f"tp-mlp Megatron-LM 8.3B block (d {d}, ffn {h}), world {tp} "
+        f"(dp 1, tp {tp}), {n} tokens: fused p50 {p50_f * 1e6!r} us "
+        f"({n / p50_f!r} tokens/s), launches {json.dumps(fired)} per "
+        f"forward, "
+        f"kernels {kernel_ms['agmm_kernel']!r} + "
+        f"{kernel_ms['mmrs_kernel']!r} ms; baseline p50 {p50_b * 1e6!r} us "
+        f"({n / p50_b!r} tokens/s); max|diff| {json.dumps(errs)}")
+    del yf, yb, ref, params, dense, x
+    torch.cuda.empty_cache()
+    # the lane shape: the fused bodies (resident plans) against the pair
+    m, k, nn = CMATMUL_LANE
+    xl, xrl, wl = cmatmul_operands(gen, tp, m, k, nn)
+    for name, fn, pair, a, b, K in (
+            ("allgather_matmul", cm.all_gather_matmul_body,
+             cm.xla_all_gather_matmul, xl, wl, k),
+            ("matmul_reduce_scatter", cm.matmul_reduce_scatter_body,
+             cm.xla_matmul_reduce_scatter, xrl, wl, tp * k)):
+        err = (fn(a, b, overlap=True) - pair(a, b)).abs()
+        if bool((err > f32_sum_bound(K, pair(a.abs(), b.abs()))).any()):
+            fail(f"fused {name} outside the f32 sum bound of the unfused "
+                 f"pair at the lane shape")
+        t_f = p50_call(lambda: fn(a, b, overlap=True), 10)
+        t_u = p50_call(lambda: pair(a, b), 10)
+        log(f"tp-mlp lane shape {(m, k, nn)} world {tp}: fused {name} p50 "
+            f"{t_f * 1e6!r} us, unfused pair p50 {t_u * 1e6!r} us")
+    return counts()
+
+
 # ---------------------------------------------------------------------------
 
 REPLACES = {
@@ -1387,6 +1737,13 @@ REPLACES = {
     "alltoall_phase_kernel": "accl_tpu/parallel/pallas_chunked.py:710",
     "a2a_mm_kernel": "accl_tpu/ops/collective_alltoall.py:230",
     "mm_a2a_kernel": "accl_tpu/ops/collective_alltoall.py:349",
+    "agmm_kernel": "accl_tpu/ops/collective_matmul.py:418",
+    "mmrs_kernel": "accl_tpu/ops/collective_matmul.py:543",
+}
+#: the streaming variant each kernel replaces as well
+ALSO_REPLACES = {
+    "agmm_kernel": "accl_tpu/ops/collective_matmul.py:676",
+    "mmrs_kernel": "accl_tpu/ops/collective_matmul.py:896",
 }
 SOURCE = {"ring_rs_kernel": "ring.cu", "ring_ag_kernel": "ring.cu",
           "chunked_rs_kernel": "ring.cu", "chunked_ag_kernel": "ring.cu",
@@ -1394,7 +1751,8 @@ SOURCE = {"ring_rs_kernel": "ring.cu", "ring_ag_kernel": "ring.cu",
           "sr_kernel": "plugins.cu", "bcast_relay_kernel": "ring.cu",
           "scatter_relay_kernel": "ring.cu", "gather_relay_kernel": "ring.cu",
           "alltoall_phase_kernel": "ring.cu", "a2a_mm_kernel": "a2a.cu",
-          "mm_a2a_kernel": "a2a.cu"}
+          "mm_a2a_kernel": "a2a.cu", "agmm_kernel": "cmatmul.cu",
+          "mmrs_kernel": "cmatmul.cu"}
 #: the part of phase 3 whose launch counts each kernel's entry reports
 PART = {"ring_rs_kernel": "allreduce", "ring_ag_kernel": "allreduce",
         "chunked_rs_kernel": "allreduce", "chunked_ag_kernel": "allreduce",
@@ -1402,7 +1760,8 @@ PART = {"ring_rs_kernel": "allreduce", "ring_ag_kernel": "allreduce",
         "sr_kernel": "slice2", "bcast_relay_kernel": "rooted",
         "scatter_relay_kernel": "rooted", "gather_relay_kernel": "rooted",
         "alltoall_phase_kernel": "alltoall", "a2a_mm_kernel": "moe",
-        "mm_a2a_kernel": "moe"}
+        "mm_a2a_kernel": "moe", "agmm_kernel": "tp_mlp",
+        "mmrs_kernel": "tp_mlp"}
 
 
 def main() -> int:
@@ -1433,6 +1792,7 @@ def main() -> int:
     check_relay_kernels(gen)
     check_alltoall_kernels(gen)
     check_moe_kernels(gen)
+    check_cmatmul_kernels(gen)
     total = torch.cuda.get_device_properties(0).total_memory
     big_ok = total >= 60 * GIB
     meas = measure_kernels(gen, big_ok)
@@ -1440,12 +1800,15 @@ def main() -> int:
     meas.update(measure_relay_kernels(gen, big_ok))
     meas.update(measure_alltoall_kernel(gen, big_ok))
     meas.update(measure_moe_kernels(gen))
+    meas.update(measure_cmatmul_kernels(gen))
 
     parts = {"allreduce": main_path(gen), "slice2": slice2_paths(gen),
              "rooted": rooted_paths(gen, big_ok),
              "alltoall": alltoall_paths(gen, big_ok),
              "moe": moe_paths(gen, {k: meas[k]["ms"] for k in
-                                    ("a2a_mm_kernel", "mm_a2a_kernel")})}
+                                    ("a2a_mm_kernel", "mm_a2a_kernel")}),
+             "tp_mlp": tp_mlp_paths(gen, {k: meas[k]["ms"] for k in
+                                          ("agmm_kernel", "mmrs_kernel")})}
     launches = {k: parts[PART[k]][k] for k in REPLACES}
     for k, v in launches.items():
         if v <= 0:
@@ -1464,6 +1827,8 @@ def main() -> int:
         for extra in ("ring_bound_ms", "tensor_core_bound_ms"):
             if extra in m:
                 entry[extra] = m[extra]
+        if k in ALSO_REPLACES:
+            entry["also_replaces"] = ALSO_REPLACES[k]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,10 +1,10 @@
 """The port's CUDA kernels (the ring kernels, the rooted relays, the
-all-to-all, the plugin lanes and the fused MoE dispatch and combine)
-against their plain PyTorch versions on the card: bit-equal
-(``torch.equal``, or the raw bits where NaN can occur; the MoE kernels on
-integer-valued operands). This test needs an NVIDIA GPU with ``nvcc`` (the
-kernels build at first use); where no card is visible it skips. On the
-card, where JAX is not installed, skip the suite's conftest:
+all-to-all, the plugin lanes, the fused MoE dispatch and combine and the
+collective matmuls) against their plain PyTorch versions on the card:
+bit-equal (``torch.equal``, or the raw bits where NaN can occur; the matmul
+kernels on integer-valued operands). This test needs an NVIDIA GPU with
+``nvcc`` (the kernels build at first use); where no card is visible it
+skips. On the card, where JAX is not installed, skip the suite's conftest:
 ``pytest --noconftest tests/test_torch_cuda.py -m cuda``.
 
 One test loops over every case and names the failing one in its message,
@@ -69,6 +69,7 @@ def test_ring_kernels_on_card(gen, monkeypatch):
     _allgather_kernels(gen)
     _alltoall_kernels(gen)
     _moe_kernels(gen)
+    _cmatmul_kernels(gen)
     _accl_on_card(gen, monkeypatch)
 
 
@@ -238,6 +239,7 @@ def _accl_on_card(gen, monkeypatch):
         assert torch.equal(out["cuda"], out["cpu"]), nbytes
     _rooted_on_card(gen)
     _alltoall_and_moe_on_card(gen)
+    _mlp_on_card()
 
     # with a zero spin bound every hop that has to wait times out: the
     # launches still return, and the call's request raises at wait
@@ -310,6 +312,82 @@ def _moe_kernels(gen):
             for odt in (torch.float32, torch.bfloat16, torch.float16):
                 assert torch.equal(ca.mm_a2a(hx, wo, odt),
                                    ca.plain_mm_a2a(hx, wo, odt)), (case, odt)
+
+
+def _cmatmul_kernels(gen):
+    """agmm_kernel and mmrs_kernel against their plain versions on
+    integer-valued operands (exact), through the bodies, whose plans pick
+    the launches: worlds 2, 3 and 8, bidirectional off and on (P >= 4), an
+    aligned and a ragged per-rank shape, the resident plan and, with the
+    plan budget pinched, the k-blocked and the accumulator-blocked ones, f32
+    and a bf16 wire (the travelling sum past 256, so it rounds)."""
+    from accl_tpu_torch.ops import collective_matmul as cm
+
+    def ints(shape, lo=-9, hi=10):
+        return torch.randint(lo, hi, shape, generator=gen, device="cuda") \
+            .float()
+
+    kernels = (cm.agmm, cm.mmrs)
+    saved = cm._VMEM_BUDGET
+    try:
+        for P in (2, 3, 8):
+            for m, k, n in ((32, 256, 256), (12, 72, 40)):
+                x, xr, w = ints((P, m, k)), ints((P, P * m, k)), \
+                    ints((P, k, n))
+                for budget in (12 << 20, 200 << 10, 96 << 10):
+                    cm._VMEM_BUDGET = budget
+                    for bidir in ((False, True) if P >= 4 else (False,)):
+                        for wire in ("off", "bf16"):
+                            case = (P, m, k, n, budget, bidir, wire)
+                            got = (cm.all_gather_matmul_body(
+                                       x, w, overlap=True,
+                                       bidirectional=bidir,
+                                       wire_dtype=wire),
+                                   cm.matmul_reduce_scatter_body(
+                                       xr, w, overlap=True,
+                                       bidirectional=bidir,
+                                       wire_dtype=wire))
+                            cm.agmm, cm.mmrs = cm.plain_agmm, cm.plain_mmrs
+                            try:
+                                want = (cm.all_gather_matmul_body(
+                                            x, w, overlap=True,
+                                            bidirectional=bidir,
+                                            wire_dtype=wire),
+                                        cm.matmul_reduce_scatter_body(
+                                            xr, w, overlap=True,
+                                            bidirectional=bidir,
+                                            wire_dtype=wire))
+                            finally:
+                                cm.agmm, cm.mmrs = kernels
+                            assert torch.equal(got[0], want[0]), \
+                                ("agmm", case)
+                            assert torch.equal(got[1], want[1]), \
+                                ("mmrs", case)
+    finally:
+        cm._VMEM_BUDGET = saved
+
+
+def _mlp_on_card():
+    """The TP MLP forward (fused and baseline) on the card against the same
+    call on the CPU, within rtol 1e-5 / atol 1e-6 (the f32 matmuls sum in
+    another order)."""
+    import accl_tpu_torch as at
+    from accl_tpu_torch.models import mlp
+    g = torch.Generator(device="cpu")
+    g.manual_seed(5)
+    dense = mlp.init_params(g, 128, 512)
+    x = torch.randn((64, 128), generator=g)
+    for dp, tp in ((1, 8), (2, 4)):
+        for overlap in (True, False):
+            got = {}
+            for dev in ("cuda", "cpu"):
+                c = at.Communicator(dp * tp, dev)
+                p = mlp.shard_params(dense, c, dp, tp)
+                got[dev] = mlp.make_forward(c, dp, tp, overlap=overlap)(
+                    p, x.to(dev)).cpu()
+            torch.testing.assert_close(
+                got["cuda"], got["cpu"], rtol=1e-5, atol=1e-6,
+                msg=f"mlp dp={dp} tp={tp} overlap={overlap}")
 
 
 def _alltoall_and_moe_on_card(gen):

@@ -454,14 +454,6 @@ def _derive_seed_matches():
     assert tcomp.payload_seed_base(torch.from_numpy(x)).tolist() == want
 
 
-def test_value_types_match():
-    _enums_match()
-    _constants_and_dtypes_match()
-    _acclerror_message_and_code()
-    _arith_configs_match()
-    _config_schema_matches()
-
-
 def test_wire_codecs_and_fold_match():
     for scale in (None, 10.0, 3.0, 16.0):
         _wire_codec_matches(scale)
@@ -475,6 +467,13 @@ def test_wire_codecs_and_fold_match():
 
 
 def test_host_plumbing():
+    """The value types first (enums, constants and dtypes, ACCLError,
+    arith configs, the config schema), then the host plumbing."""
+    _enums_match()
+    _constants_and_dtypes_match()
+    _acclerror_message_and_code()
+    _arith_configs_match()
+    _config_schema_matches()
     _program_cache_lru_and_counters()
     _metrics_core()
     _buffer_host_mirror_is_lazy()

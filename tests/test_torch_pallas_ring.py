@@ -87,7 +87,7 @@ RS_CASES = [("sum", F32, 24), ("max", F32, 24), ("sum", I32, 24),
             ("sum", BF16, 40)]
 
 
-def test_reduce_scatter_parity(oracle, tcomm):
+def _reduce_scatter_parity(oracle, tcomm):
     """SUM/MAX and f32/i32/bf16 payloads; for the f32 cases also the
     kernel's own output (before the program's shift), which leaves rank r
     owning chunk (r+1)%P: rolling the JAX program's result back by one
@@ -99,20 +99,23 @@ def test_reduce_scatter_parity(oracle, tcomm):
                           c, _JF[func], _JD[dt]), jx)
         got = tring.build_pallas_ring_reduce_scatter(tcomm, _TF[func],
                                                      _TD[dt])(tx)
-        assert _same(want, got), (func, dt, n)
+        assert _same(want, got), ("reduce_scatter", func, dt, n)
         if dt != F32:
             continue
         L = tring._pad_rows(n, torch.float32) * tring._LANES
         chunks = torch.zeros((WORLD, WORLD, L))
         chunks[:, :, :n] = tx.reshape(WORLD, WORLD, n)
         raw = tring.ring_reduce_scatter(chunks, _TF[func])[:, :n]
-        assert np.array_equal(np.roll(want, -1, axis=0), _np(raw)), func
+        assert np.array_equal(np.roll(want, -1, axis=0), _np(raw)), \
+            ("reduce_scatter raw kernel output", func)
 
 
 AG_CASES = [(F32, 40, None), (F32, 1000, "bf16")]
 
 
 def test_allgather_parity(oracle, tcomm):
+    """The all-gather cases, then the reduce-scatter ones
+    (:func:`_reduce_scatter_parity`)."""
     for dt, n, wire in AG_CASES:
         jx, tx = _inputs(20 + n, (WORLD, n), dt)
         jar = tar = None
@@ -126,7 +129,8 @@ def test_allgather_parity(oracle, tcomm):
                           c, _JD[dt], arith=jar), jx)
         got = tring.build_pallas_ring_allgather(tcomm, _TD[dt],
                                                 arith=tar)(tx)
-        assert _same(want, got), (dt, n, wire)
+        assert _same(want, got), ("allgather", dt, n, wire)
+    _reduce_scatter_parity(oracle, tcomm)
 
 
 AR_CASES = [("sum", 1000, None), ("max", 50, None), ("sum", 4096, "bf16"),

@@ -1,15 +1,17 @@
 """Selection parity: the port's ``algorithms.select`` resolves the same
 algorithm family as the JAX package's for allreduce, reduce-scatter,
 all-gather, the rooted bcast, scatter, gather and reduce, and alltoall over
-a 4 B - 1 GiB sweep (the ladder plus the synthesizer's latency tier), on the
-intra-node tier, the emulator rung and DCN; and every family AUTO resolves
-there builds."""
+a 4 B - 1 GiB sweep (the ladder plus the synthesizer's latency tier), and
+for the four collective-matmul ops around their size registers, with and
+without a wire dtype and on explicit requests, on the intra-node tier, the
+emulator rung and DCN; and every family AUTO resolves there builds."""
 import jax
 import pytest
 import torch
 
 from accl_tpu.communicator import Communicator as JComm
 from accl_tpu.config import ACCLConfig as JCfg
+from accl_tpu.config import Algorithm as JAlgo
 from accl_tpu.config import TransportBackend as JT
 from accl_tpu.constants import operation as JOp
 from accl_tpu.parallel import algorithms as jalg
@@ -41,7 +43,59 @@ def test_select_parity_sweep():
                                     count=nbytes // 4)
                     assert t.value == j.value, (op, nbytes, world,
                                                 transport)
+    _cmatmul_select_parity()
     _auto_builds_everywhere()
+
+
+CMATMUL_OPS = ("allgather_matmul", "matmul_reduce_scatter",
+               "alltoall_matmul", "matmul_alltoall")
+
+
+def _outcome(select, *args, **kw):
+    try:
+        return select(*args, **kw).value
+    except ValueError as e:
+        return ("ValueError", str(e))
+
+
+def _cmatmul_select_parity():
+    """The four collective-matmul ops at worlds 1, 2 and 8 on the
+    intra-node tier, the emulator rung and DCN: AUTO over a byte ladder
+    around each size register (default and moved), the session wire None
+    and "bf16" (the registers compare wire bytes; ``count`` gives the
+    operand width, f32 without it), and explicit PALLAS, XLA and RING
+    (RING raises in both packages)."""
+    for world in (1, 2, 8):
+        jcomm = JComm(jax.devices()[:world])
+        tcomm = at.Communicator(world, "cpu")
+        for transport in ("ici", "sim", "dcn"):
+            for wire in (None, "bf16"):
+                for th in (256 * 1024, 4096):
+                    regs = {"ag_matmul_threshold": th,
+                            "rs_matmul_threshold": th,
+                            "a2a_matmul_threshold": th,
+                            "cmatmul_wire_dtype": wire}
+                    jcfg = JCfg(transport=JT(transport)).replace(**regs)
+                    tcfg = at.ACCLConfig(transport=at.TransportBackend(
+                        transport)).replace(**regs)
+                    sizes = [4, th - 1, th, th + 1, 2 * th - 2, 2 * th,
+                             2 * th + 4, 1 << 20, 64 << 20]
+                    for op in CMATMUL_OPS:
+                        for nbytes in sizes:
+                            for count in (None, nbytes // 4, nbytes // 2):
+                                for req in (None, "pallas", "xla", "ring"):
+                                    case = (op, nbytes, count, req, world,
+                                            transport, wire, th)
+                                    j = _outcome(
+                                        jalg.select, JOp[op], nbytes, jcomm,
+                                        jcfg, requested=req and JAlgo(req),
+                                        count=count or None)
+                                    t = _outcome(
+                                        talg.select, at.operation[op],
+                                        nbytes, tcomm, tcfg,
+                                        requested=req and at.Algorithm(req),
+                                        count=count or None)
+                                    assert t == j, case
 
 
 def _auto_builds_everywhere():
