@@ -89,6 +89,7 @@ class ACCL:
         _cm_ops.set_nblock_enabled(cfg.cmatmul_nblock)
         _a2a_ops.set_overlap_enabled(cfg.moe_overlap)
         _a2a_ops.set_overlap_threshold(cfg.a2a_matmul_threshold)
+        _a2a_ops.set_dw_overlap_enabled(cfg.moe_dw_overlap)
         self._config = cfg
         self._programs.set_maxsize(cfg.program_cache_size)
 

@@ -1,9 +1,10 @@
 // Collective-matmul kernels for Hopper (sm_90a), bound to Python with ctypes.
 //
-// Replaces the four forward Pallas TPU kernels of the tensor-parallel
-// collective matmuls (accl_tpu/ops/collective_matmul.py):
-//   agmm_kernel <- _agmm_kernel (:418, resident) and _agmm_stream_kernel (:676, k-blocked)
-//   mmrs_kernel <- _mmrs_kernel (:543, resident) and _mmrs_stream_kernel (:896, k-blocked)
+// Replaces the five Pallas TPU kernels of the tensor-parallel collective
+// matmuls and their backward (accl_tpu/ops/collective_matmul.py):
+//   agmm_kernel  <- _agmm_kernel (:418, resident) and _agmm_stream_kernel (:676, k-blocked)
+//   mmrs_kernel  <- _mmrs_kernel (:543, resident) and _mmrs_stream_kernel (:896, k-blocked)
+//   wgrad_kernel <- _wgrad_kernel (:1050, the gathered wgrad of both backward passes)
 //
 // Rank model, as in ring.cu and a2a.cu: every rank's operand is reached
 // through a per-rank pointer table (RankPtrs); on one card each entry is a
@@ -16,6 +17,9 @@
 //         reduce_scatter(x @ w): the partials x[q][r mc + i] @ w[q] folded in
 //         the ring's order (below), the travelling sum rounded to the wire
 //         type before each hop.
+//   wgrad: trav[s] (ms, ct) shard of rank s, loc[r] (P ms, cl) ->
+//         out[r] (ct, cl) f32 = sum_s trav[s]^T loc[r][s ms ..] (all_gather(trav)^T
+//         @ loc), or the mirror (cl, ct) = loc[r]^T all_gather(trav).
 //
 // agmm. On a TPU each arriving shard is multiplied while the next hop is in
 // flight; the resident body holds the whole shard in VMEM, the streaming
@@ -47,9 +51,22 @@
 // accumulator-blocking arm (one streaming kernel per nb column block) is one
 // launch per column block [c0, c1).
 //
+// wgrad. On a TPU the traveller's shards ride the agmm ring and each
+// arrival's dim-0-contracting partial is added into the dw panel while the
+// next hop is in flight: o = c(local rows of channel 0) + c(local rows of
+// channel 1), then hop t adds channel 0's arrival from rank r - t - 1 and
+// channel 1's from rank r + t + 1. On the card a block owns one 64 x 64 dw
+// tile of one rank and loops over those segments in that order, each
+// partial computed fresh (fmaf over its rows, ascending) and added to the
+// tile's sum in registers; no reduction crosses blocks. The contraction runs
+// over rows, so both operands are staged as depth-16 row slabs, read along
+// their columns (no transposed global reads). The streaming arm (the TPU
+// body runs one kernel per ctb column block of the traveller) is one launch
+// per block [c0, c1).
+//
 // Bound. Each product of (M x K) by (K x N) does 2 M K N flops; at the
 // tensor-parallel shapes (K and N in the thousands) the f32 operations bound
-// both kernels on the CUDA cores (about 67 TFLOP/s on an H100 SXM; the TF32
+// the three kernels on the CUDA cores (about 67 TFLOP/s on an H100 SXM; the TF32
 // tensor cores' 495 TFLOP/s is a later redesign's target). This is the
 // simple correct kernel; wgmma, TMA and a deeper pipeline are later work.
 
@@ -85,23 +102,45 @@ template <> __device__ __forceinline__ float wire_round<__half>(float v) {
   return __half2float(__float2half_rn(v));
 }
 
+// The staged slabs' contribution, depth kn, to a thread's 4 x 4 share p:
+// thread (ty, tx) of the 16 x 16 grid owns rows ty + 16 i and columns
+// tx + 16 j (i, j < 4) of the tile, so a warp's shared-memory reads of Bs
+// are consecutive.
+__device__ __forceinline__ void tile_fma(const float (&As)[BK][TILE + 4],
+                                         const float (&Bs)[BK][TILE + 4], int kn,
+                                         float (&p)[4][4]) {
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  for (int k = 0; k < kn; ++k) {
+    float a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = As[k][ty + 16 * i];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) b[j] = Bs[k][tx + 16 * j];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) p[i][j] = fmaf(a[i], b[j], p[i][j]);
+  }
+}
+
+__device__ __forceinline__ void zero_tile(float (&p)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) p[i][j] = 0.0f;
+}
+
 // One thread's 4 x 4 share of the 64 x 64 tile (rows m0.., columns n0..) of
 // A B, A (M x K, leading dimension lda) and B (K x N, ldb) row-major, into
-// p. Thread (ty, tx) of the 16 x 16 grid owns rows m0 + ty + 16 i and
-// columns n0 + tx + 16 j (i, j < 4), so a warp's shared-memory reads of B
-// are consecutive and its output stores coalesce. Every thread of the block
-// must call it (it synchronises).
+// p, summed with fmaf in ascending k (tile_fma), so its output stores
+// coalesce. Every thread of the block must call it (it synchronises).
 template <typename TA, typename TB>
 __device__ void tile_product(const TA* __restrict__ A, long long lda, const TB* __restrict__ B,
                              long long ldb, int M, int N, int K, int m0, int n0,
                              float (&p)[4][4], float (&As)[BK][TILE + 4],
                              float (&Bs)[BK][TILE + 4]) {
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) p[i][j] = 0.0f;
-
+  const int tid = threadIdx.x;
+  zero_tile(p);
   for (int k0 = 0; k0 < K; k0 += BK) {
     for (int t = tid; t < TILE * BK; t += CM_THREADS) {
       const int m = t / BK, k = t % BK, gm = m0 + m, gk = k0 + k;
@@ -112,18 +151,32 @@ __device__ void tile_product(const TA* __restrict__ A, long long lda, const TB* 
       Bs[k][n] = (gk < K && gn < N) ? to_f32(B[(long long)gk * ldb + gn]) : 0.0f;
     }
     __syncthreads();
-    const int kn = min(BK, K - k0);
-    for (int k = 0; k < kn; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) p[i][j] = fmaf(a[i], b[j], p[i][j]);
+    tile_fma(As, Bs, min(BK, K - k0), p);
+    __syncthreads();
+  }
+}
+
+// tile_product of A^T B with A (K x M, lda) and B (K x N, ldb) row-major:
+// the contraction runs over the rows of both, so each depth-16 slab of A and
+// of B is read along its rows, neighbouring threads on neighbouring columns.
+template <typename TA, typename TB>
+__device__ void tile_product_tn(const TA* __restrict__ A, long long lda,
+                                const TB* __restrict__ B, long long ldb, int M, int N, int K,
+                                int m0, int n0, float (&p)[4][4], float (&As)[BK][TILE + 4],
+                                float (&Bs)[BK][TILE + 4]) {
+  const int tid = threadIdx.x;
+  zero_tile(p);
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    for (int t = tid; t < BK * TILE; t += CM_THREADS) {
+      const int k = t / TILE, m = t % TILE, gk = k0 + k, gm = m0 + m;
+      As[k][m] = (gk < K && gm < M) ? to_f32(A[(long long)gk * lda + gm]) : 0.0f;
     }
+    for (int t = tid; t < BK * TILE; t += CM_THREADS) {
+      const int k = t / TILE, n = t % TILE, gk = k0 + k, gn = n0 + n;
+      Bs[k][n] = (gk < K && gn < N) ? to_f32(B[(long long)gk * ldb + gn]) : 0.0f;
+    }
+    __syncthreads();
+    tile_fma(As, Bs, min(BK, K - k0), p);
     __syncthreads();
   }
 }
@@ -208,6 +261,42 @@ mmrs_kernel(RankPtrs x, RankPtrs w, RankPtrs out, int P, int mc, int k, int n, i
   store_tile(O, n, hi - lo, N, 0, n0, acc);
 }
 
+// Grid: x the column tiles of the dw panel, y its row tiles, z the rank r.
+// LHS: out[r] rows [c0, c1) of (ct, cl); else columns [c0, c1) of (cl, ct).
+// Segments in the ring's order: hop t of channel 0 brings rank r - t's rows
+// [0, split), of channel 1 (rows [split, ms), bidirectional rings only)
+// rank r + t's; hop 0 is the local shard.
+template <typename TT, typename TL, bool LHS>
+__global__ void __launch_bounds__(CM_THREADS)
+wgrad_kernel(RankPtrs trav, RankPtrs loc, RankPtrs out, int P, int ms, int ct, int cl, int c0,
+             int c1, int split) {
+  __shared__ float As[BK][TILE + 4];
+  __shared__ float Bs[BK][TILE + 4];
+  const int r = blockIdx.z, m0 = blockIdx.y * TILE, n0 = blockIdx.x * TILE;
+  const int M = LHS ? c1 - c0 : cl, N = LHS ? cl : c1 - c0;
+  const int nchan = split < ms ? 2 : 1;
+  float acc[4][4], part[4][4];
+  for (int t = 0; t < P; ++t) {
+    for (int chan = 0; chan < nchan; ++chan) {
+      const int s = chan == 0 ? (r - t + P) % P : (r + t) % P;
+      const int lo = chan == 0 ? 0 : split, hi = chan == 0 ? split : ms;
+      const TT* T = static_cast<const TT*>(trav.p[s]) + (long long)lo * ct + c0;
+      const TL* L = static_cast<const TL*>(loc.p[r]) + ((long long)s * ms + lo) * cl;
+      if (LHS)
+        tile_product_tn<TT, TL>(T, ct, L, cl, M, N, hi - lo, m0, n0, part, As, Bs);
+      else
+        tile_product_tn<TL, TT>(L, cl, T, ct, M, N, hi - lo, m0, n0, part, As, Bs);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[i][j] = (t == 0 && chan == 0) ? part[i][j] : acc[i][j] + part[i][j];
+    }
+  }
+  float* O = static_cast<float*>(out.p[r]) + (LHS ? (long long)c0 * cl : (long long)c0);
+  store_tile(O, LHS ? cl : ct, M, N, m0, n0, acc);
+}
+
 // ---------------------------------------------------------------------------
 // C interface
 // ---------------------------------------------------------------------------
@@ -260,6 +349,30 @@ static const void* resolve_mmrs(int xdt, int wdt, int wire) {
   return nullptr;
 }
 
+template <typename TT, bool LHS>
+static const void* pick_wgrad(int ldt) {
+  switch (ldt) {
+    case DT_F32: return (const void*)wgrad_kernel<TT, float, LHS>;
+    case DT_BF16: return (const void*)wgrad_kernel<TT, __nv_bfloat16, LHS>;
+    case DT_F16: return (const void*)wgrad_kernel<TT, __half, LHS>;
+  }
+  return nullptr;
+}
+
+template <bool LHS>
+static const void* pick_wgrad_trav(int tdt, int ldt) {
+  switch (tdt) {
+    case DT_F32: return pick_wgrad<float, LHS>(ldt);
+    case DT_BF16: return pick_wgrad<__nv_bfloat16, LHS>(ldt);
+    case DT_F16: return pick_wgrad<__half, LHS>(ldt);
+  }
+  return nullptr;
+}
+
+static const void* resolve_wgrad(int tdt, int ldt, int lhs) {
+  return lhs ? pick_wgrad_trav<true>(tdt, ldt) : pick_wgrad_trav<false>(tdt, ldt);
+}
+
 static RankPtrs table(const uint64_t* ptrs, int P) {
   RankPtrs t;
   memset(&t, 0, sizeof(t));
@@ -310,6 +423,29 @@ int accl_cmatmul_mmrs(int xdt, int wdt, int wire, const uint64_t* x, const uint6
   RankPtrs tx = table(x, P), tw = table(w, P), to = table(o, P);
   void* args[] = {&tx, &tw, &to, &P, &mc, &k, &n, &c0, &c1, &split, &tiles0};
   const dim3 grid((c1 - c0 + TILE - 1) / TILE, (unsigned)gy, (unsigned)P);
+  cudaError_t e = cudaLaunchKernel(fn, grid, dim3(CM_THREADS), args, 0,
+                                   static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// One launch of wgrad_kernel over the traveller's columns [c0, c1), channel
+// 1 from shard row `split` (ms for a one-channel ring): t, l, o are the
+// per-rank pointer tables of the (ms, ct) shards, the (P ms, cl) resident
+// operands and the f32 dw panels, (ct, cl) when lhs is 1 and (cl, ct) when
+// 0; tdt, ldt the operands' dtype codes.
+int accl_cmatmul_wgrad(int tdt, int ldt, int lhs, const uint64_t* t, const uint64_t* l,
+                       const uint64_t* o, int P, int ms, int ct, int cl, int c0, int c1,
+                       int split, void* stream) {
+  const void* fn = resolve_wgrad(tdt, ldt, lhs);
+  if (fn == nullptr || P < 1 || P > CM_MAX_RANKS || ms < 1 || ct < 1 || cl < 1 || c0 < 0 ||
+      c1 > ct || c0 >= c1 || split < 1 || split > ms)
+    return (int)cudaErrorInvalidValue;
+  const int rows = lhs ? c1 - c0 : cl, cols = lhs ? cl : c1 - c0;
+  if (tiles(rows) > 65535) return (int)cudaErrorInvalidValue;
+  RankPtrs tt = table(t, P), tl = table(l, P), to = table(o, P);
+  void* args[] = {&tt, &tl, &to, &P, &ms, &ct, &cl, &c0, &c1, &split};
+  const dim3 grid((unsigned)tiles(cols), (unsigned)tiles(rows), (unsigned)P);
   cudaError_t e = cudaLaunchKernel(fn, grid, dim3(CM_THREADS), args, 0,
                                    static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;

@@ -136,6 +136,10 @@ def _declare_a2a(lib: ctypes.CDLL) -> None:
     lib.accl_a2a_mm.argtypes = [c_int, c_int, c_int, c_int, u64p, u64p, u64p,
                                 c_int, c_int, c_int, c_int, c_int, c_p]
     lib.accl_a2a_mm.restype = c_int
+    lib.accl_a2a_wgrad.argtypes = [c_int, c_int, c_int, u64p, u64p, u64p,
+                                   c_int, c_int, c_int, c_int, c_int, c_int,
+                                   c_p]
+    lib.accl_a2a_wgrad.restype = c_int
 
 
 def _declare_cmatmul(lib: ctypes.CDLL) -> None:
@@ -149,6 +153,10 @@ def _declare_cmatmul(lib: ctypes.CDLL) -> None:
                                       c_int, c_int, c_int, c_int, c_int,
                                       c_int, c_int, c_p]
     lib.accl_cmatmul_mmrs.restype = c_int
+    lib.accl_cmatmul_wgrad.argtypes = [c_int, c_int, c_int, u64p, u64p, u64p,
+                                       c_int, c_int, c_int, c_int, c_int,
+                                       c_int, c_int, c_p]
+    lib.accl_cmatmul_wgrad.restype = c_int
 
 
 _DECLARE = {"ring": _declare_ring, "plugins": _declare_plugins,

@@ -7,7 +7,8 @@ so a call acts on all ranks at once.
 Ported so far: the MoE pair :func:`alltoall_matmul` and
 :func:`matmul_alltoall`, and the tensor-parallel collective matmuls
 :func:`all_gather_matmul`, :func:`matmul_reduce_scatter` and
-:func:`fsdp_matmul` (forward only). Still to port (ROADMAP.md queue 1, item
+:func:`fsdp_matmul`, all differentiable (the backward runs the dual fused
+kernels and the gathered wgrads). Still to port (ROADMAP.md queue 1, item
 10b): ``rank``, ``world``, ``allreduce``, ``reduce_to``, ``bcast``,
 ``scatter``, ``gather``, ``all_gather``, ``reduce_scatter``,
 ``all_to_all``, ``pp_relay``, ``put_next``, ``get_prev``, ``send_recv``,
@@ -26,8 +27,8 @@ def alltoall_matmul(x, w, overlap: Optional[bool] = None,
     dispatch kernel when its plan engages (:mod:`.ops.collective_alltoall`).
     ``overlap=None`` follows ``ACCLConfig.moe_overlap`` and the
     ``a2a_matmul_threshold`` register; ``wire_dtype=None`` follows
-    ``ACCLConfig.cmatmul_wire_dtype``. Forward only: an input that requires
-    grad raises."""
+    ``ACCLConfig.cmatmul_wire_dtype``. Differentiable: dx through the
+    fused combine, dw through the a2a-wgrad kernel."""
     from .ops import collective_alltoall as ca
     return ca.alltoall_matmul(x, w, overlap, bidirectional, wire_dtype)
 
@@ -50,8 +51,9 @@ def all_gather_matmul(x, w, overlap: Optional[bool] = None,
     world*m, n) f32, through the fused kernel when its plan engages
     (:mod:`.ops.collective_matmul`). ``overlap=None`` follows
     ``ACCLConfig.cmatmul_overlap`` and ``ag_matmul_threshold``;
-    ``wire_dtype=None`` follows ``ACCLConfig.cmatmul_wire_dtype``. Forward
-    only: an input that requires grad raises."""
+    ``wire_dtype=None`` follows ``ACCLConfig.cmatmul_wire_dtype``.
+    Differentiable: dx through the fused matmul x reduce-scatter, dw
+    through the gathered-wgrad kernel."""
     from .ops import collective_matmul as cm
     return cm.all_gather_matmul(x, w, overlap, bidirectional, wire_dtype)
 

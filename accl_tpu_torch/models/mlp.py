@@ -1,5 +1,5 @@
 """Tensor- and data-parallel MLP block (counterpart:
-``accl_tpu/models/mlp.py``), forward only.
+``accl_tpu/models/mlp.py``): its forward and its SGD train step.
 
 A Megatron-style block, ``gelu(x @ W1 + b1) @ W2 + b2`` with the tanh GELU
 (``jax.nn.gelu``'s default), over a (dp, tp) split of the world: rank
@@ -21,7 +21,8 @@ Two tensor-parallel datapaths, the same math:
   kernels engage (``cm.agmm_engages`` and ``cm.mmrs_engages``), as in the
   JAX package; otherwise the baseline runs.
 
-Training (``make_train_step``) waits for ROADMAP.md queue 1, item 10b.
+The backward of the fused datapath runs the collective matmuls' duals and
+the gathered-wgrad kernel (:mod:`..ops.collective_matmul`).
 """
 from __future__ import annotations
 
@@ -33,7 +34,6 @@ import torch.nn.functional as F
 
 from .. import device_api as dapi
 from ..communicator import Communicator
-from ..constants import ACCLError, errorCode
 from ..ops import collective_matmul as cm
 
 
@@ -167,9 +167,66 @@ def make_forward(comm: Communicator, dp: int, tp: int,
     return fwd
 
 
-def make_train_step(*args, **kwargs):
-    """Not ported yet: the backward needs the collective matmuls' duals and
-    the gathered-wgrad kernel (ROADMAP.md queue 1, item 10b)."""
-    raise ACCLError(errorCode.COLLECTIVE_NOT_IMPLEMENTED,
-                    "mlp.make_train_step is not ported yet (ROADMAP.md "
-                    "queue 1, item 10b)")
+def make_loss_and_grads(comm: Communicator, dp: int, tp: int,
+                        overlap: Optional[bool] = None, wire_dtype=None):
+    """The gradient half of :func:`make_train_step`: ``fn(params, x,
+    targets) -> (loss, grads)`` with ``params`` from :func:`shard_params`,
+    x and targets (N, d), dp group i taking rows i*N/dp..; returns the dp
+    mean of the MSE loss (a 0-d tensor) and the dp-mean gradients in the
+    sharded layout.
+
+    Every rank holds its own loss, ``mean((y - t)^2)`` over its group's
+    rows, and the backward runs on their sum, as ``jax.value_and_grad``
+    inside the JAX package's ``shard_map`` does: the tp ranks of a group
+    hold the same loss, so the row-parallel sum's backward (and the fused
+    path's gather of the scattered rows) adds their tp identical
+    cotangents, and the gradients of w1, b1 and w2 are tp times the dense
+    gradient, b2's once."""
+    world = comm.world_size
+    if dp * tp != world:
+        raise ValueError(f"dp {dp} x tp {tp} != world {world}")
+
+    def fn(params: MLPParams, x: torch.Tensor, targets: torch.Tensor):
+        N, d = x.shape
+        if N % dp:
+            raise ValueError(f"rows {N} not divisible by dp {dp}")
+        rows = N // dp
+
+        def per_rank(t):
+            return t.view(dp, 1, rows, d).expand(dp, tp, rows, d) \
+                .reshape(world, rows, d)
+
+        with torch.enable_grad():
+            p = MLPParams(*(t.detach().requires_grad_() for t in params))
+            y = _forward_local(p, per_rank(x), tp, overlap=overlap,
+                               wire_dtype=wire_dtype)
+            losses = ((y - per_rank(targets)) ** 2).mean(dim=(1, 2))
+            losses.sum().backward()
+        # the dp gradient mean: the sum over the dp rows of each tp column
+        grads = MLPParams(*(
+            (t.grad.view(dp, tp, *t.shape[1:]).sum(0) / dp).unsqueeze(0)
+            .expand(dp, tp, *t.shape[1:]).reshape(t.shape) for t in p))
+        loss = losses.detach().view(dp, tp)[:, 0].sum() / dp
+        return loss, grads
+
+    return fn
+
+
+def make_train_step(comm: Communicator, dp: int, tp: int, lr: float = 1e-2,
+                    overlap: Optional[bool] = None, wire_dtype=None):
+    """One SGD step over a (dp, tp) split of the world: ``step(params, x,
+    targets) -> (new_params, loss)``, params as :func:`shard_params` lays
+    them out, the loss before the step (the dp mean). Forward, backward,
+    the dp gradient mean and the update as the JAX ``make_train_step``
+    (:func:`make_loss_and_grads` has the gradient scaling). ``overlap``
+    picks the tensor-parallel datapath of both passes (None: the session
+    default), ``wire_dtype`` the fused rings' wire staging."""
+    loss_and_grads = make_loss_and_grads(comm, dp, tp, overlap=overlap,
+                                         wire_dtype=wire_dtype)
+
+    def step(params: MLPParams, x: torch.Tensor, targets: torch.Tensor):
+        loss, grads = loss_and_grads(params, x, targets)
+        return MLPParams(*(w.detach() - lr * g
+                           for w, g in zip(params, grads))), loss
+
+    return step

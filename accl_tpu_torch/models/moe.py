@@ -1,6 +1,5 @@
 """Expert parallelism: a Mixture-of-Experts layer whose dispatch and combine
-are the library's all-to-all (counterpart: ``accl_tpu/models/moe.py``),
-forward only.
+are the library's all-to-all (counterpart: ``accl_tpu/models/moe.py``).
 
 Each rank owns ``E / world`` experts. Top-k routed tokens go to their
 expert's rank in one all-to-all, the expert FFNs (ReLU, two matrices) run
@@ -18,7 +17,9 @@ Layout, every rank a row of the first axis:
 ``overlap=True`` runs the two exchanges and the expert matmuls through the
 fused dispatch and combine kernels (:mod:`..ops.collective_alltoall`);
 ``overlap=False`` the unfused baseline (all-to-all, einsum, ReLU, einsum,
-all-to-all). The backward waits for ROADMAP.md queue 1, item 11.
+all-to-all). Both are differentiable: the router, ``w_in``, ``w_out`` and
+the tokens get their gradients through autograd, the fused path's from the
+dual kernels (dx) and the a2a-wgrad kernel (dw).
 """
 from __future__ import annotations
 

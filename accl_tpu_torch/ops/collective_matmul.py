@@ -1,6 +1,6 @@
 """Collective matmul: the tensor-parallel all-gather x matmul and matmul x
-reduce-scatter (counterpart: ``accl_tpu/ops/collective_matmul.py``),
-forward only.
+reduce-scatter (counterpart: ``accl_tpu/ops/collective_matmul.py``), with
+their backward.
 
 Tensors carry every rank as a row of their first axis:
 
@@ -11,7 +11,14 @@ Tensors carry every rank as a row of their first axis:
   by P); w (P, k, n) (row-parallel). Returns (P, m/P, n) f32:
   ``reduce_scatter(x @ w, rows)``.
 
-Two kernels, each with a plain PyTorch version, a launch counter and a
+Both are ``torch.autograd.Function``s and each other's duals, as the JAX
+package's ``custom_vjp``s are: dx of the all-gather x matmul is the matmul x
+reduce-scatter of dy against w transposed and back, and the other way
+round; dw of either is :func:`gathered_wgrad_body`, the all-gather of the
+travelling operand folded into dw's contraction over rows. ``overlap``,
+``bidirectional`` and ``wire_dtype`` pass through to every backward body.
+
+Three kernels, each with a plain PyTorch version, a launch counter and a
 wrapper that runs the plain version on CPU tensors and launches the CUDA
 kernel on CUDA tensors (or raises; there is no fallback):
 
@@ -21,26 +28,29 @@ kernel on CUDA tensors (or raises; there is no fallback):
   ``_mmrs_stream_kernel``: the travelling accumulator folds the ranks'
   partials in the ring's order and rounds to the wire dtype before each
   hop. Kernel: ``csrc/cmatmul.cu:mmrs_kernel``.
+* :func:`wgrad` replaces ``collective_matmul.py:_wgrad_kernel``: each
+  rank's dw sums the gathered shards' partials in the ring's order (the
+  local shard's two row halves, then each hop's arrivals). Kernel:
+  ``csrc/cmatmul.cu:wgrad_kernel``.
 
 The policy is the JAX package's, number for number: the session registers
 (``ACCLConfig.cmatmul_overlap``, ``ag/rs_matmul_threshold``, the per-aspect
 class thresholds, ``cmatmul_nblock``, ``cmatmul_wire_dtype``), the plans
-:func:`agmm_plan` and :func:`mmrs_plan` with their resident, streaming and
-accumulator-blocking arms, the engage-reason vocabulary (``off``,
-``no_interpret``, ``threshold``, ``vmem_miss``, ``geometry``) and the
-counted fallbacks to the unfused pair (``accl_cmatmul_fallback_total{op,
-reason}``). The plans keep the TPU's VMEM budget, which the card's kernels
-do not need, so that engage decisions, fallback labels and launch counts
-equal the JAX package's; the streaming plan's ``nmb`` row blocks (agmm) and
-``nnb`` column blocks (mmrs) are one kernel launch each.
+:func:`agmm_plan`, :func:`mmrs_plan` and :func:`wgrad_plan` with their
+resident, streaming and accumulator-blocking arms, the engage-reason
+vocabulary (``off``, ``no_interpret``, ``threshold``, ``vmem_miss``,
+``geometry``) and the counted fallbacks to the unfused pair
+(``accl_cmatmul_fallback_total{op, reason}``, the backward's dw under
+``{op}_dw``). The plans keep the TPU's VMEM budget, which the card's
+kernels do not need, so that engage decisions, fallback labels and launch
+counts equal the JAX package's; the streaming plan's ``nmb`` row blocks
+(agmm), ``nnb`` column blocks (mmrs) and ``nctb`` traveller column blocks
+(wgrad) are one kernel launch each.
 
 Also here, shared with the fused all-to-all ops
 (:mod:`.collective_alltoall`): the wire-dtype register and its resolution,
 the wire staging cast (``_wire_cast``, over the plugin cast and
 stochastic-rounding kernels of :mod:`.compression`) and ``_note_fallback``.
-
-The backward (the ``custom_vjp`` duals and ``_wgrad_kernel``) is ROADMAP.md
-queue 1, item 10b: an input that requires grad raises.
 """
 from __future__ import annotations
 
@@ -88,8 +98,9 @@ _AG_CLASS_THRESHOLDS: dict = {}
 _RS_CLASS_THRESHOLDS: dict = {}
 #: accumulator blocking (``ACCLConfig.cmatmul_nblock``): when even the
 #: 128-lane k-block misses the budget, split the accumulator into blocks
-#: (agmm: traveller rows, mmrs: output columns), one launch each; False
-#: declines such shapes (``vmem_miss``)
+#: (agmm: traveller rows, mmrs: output columns; wgrad's streaming arm:
+#: traveller columns), one launch each; False declines such shapes
+#: (``vmem_miss``)
 _NBLOCK_DEFAULT = True
 
 
@@ -447,6 +458,49 @@ def mmrs_plan(m: int, k: int, n: int, P: int, dtype,
             "vmem_bytes": est_block(nb, kb)}
 
 
+def wgrad_plan(ms: int, ct: int, cl: int, P: int, trav_dtype, loc_dtype,
+               bidirectional: bool) -> Optional[dict]:
+    """Geometry of the fused gathered wgrad: resident when the travelling
+    (ms, ct) shard, its two receive slots, the local (ms, cl) block and the
+    f32 (ct, cl) dw panel fit the budget together; else the streaming arm
+    (``cmatmul_nblock``) splits the traveller's columns into ``ctb`` blocks
+    (keys ``ctb``/``nctb``), one launch each into a disjoint dw block;
+    None when even the 128-lane block misses. The rows are the contraction
+    and split in ``nchan`` halves: on the card ``msp // nchan`` is the row
+    where channel 1 starts."""
+    if ms < 1 or ct < 1 or cl < 1 or P < 1:
+        return None
+    tisz = _itemsize(trav_dtype)
+    lisz = _itemsize(loc_dtype)
+    sub = max(_sublane(trav_dtype), _sublane(loc_dtype))
+    nchan = 2 if (bidirectional and P >= 4) else 1
+    msp = _pad_to(max(ms, 1), sub * nchan)
+    ctp = _pad_to(max(ct, 1), _LANES)
+    clp = _pad_to(max(cl, 1), _LANES)
+    est = (msp * ctp * tisz          # own travelling shard
+           + 2 * msp * ctp * tisz    # recv slots
+           + msp * clp * lisz        # per-channel local blocks
+           + ctp * clp * 4)          # f32 dw accumulator
+    if est <= _VMEM_BUDGET:
+        return {"msp": msp, "ctp": ctp, "clp": clp, "nchan": nchan,
+                "bidirectional": nchan == 2, "vmem_bytes": est}
+    if not _NBLOCK_DEFAULT:
+        return None
+
+    def est_block(ctb):
+        return (3 * msp * ctb * tisz   # trav block + recv slots
+                + msp * clp * lisz     # per-channel local blocks
+                + ctb * clp * 4)       # f32 dw block accumulator
+
+    ctb = _shrink_block(ctp, _LANES, lambda b: est_block(b) <= _VMEM_BUDGET)
+    if ctb is None:
+        return None
+    nctb = -(-ctp // ctb)
+    return {"msp": msp, "ctp": nctb * ctb, "clp": clp, "nchan": nchan,
+            "bidirectional": nchan == 2, "ctb": ctb, "nctb": nctb,
+            "vmem_bytes": est_block(ctb)}
+
+
 # ---------------------------------------------------------------------------
 # the unfused pair (the fallback, and the baseline)
 # ---------------------------------------------------------------------------
@@ -609,6 +663,88 @@ mmrs.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# kernel 16: wgrad_kernel (csrc/cmatmul.cu)
+# ---------------------------------------------------------------------------
+
+def _wgrad_segments(P: int, ms: int, split: int):
+    """The sum order of :func:`wgrad`: ``(offset of the source rank, row
+    range)`` pairs, the local shard's channel-0 rows, then its channel-1
+    rows (from ``split``), then hop by hop channel 0's arrival from rank r -
+    t and channel 1's from rank r + t (``_wgrad_kernel``'s ring)."""
+    segs = []
+    for t in range(P):
+        segs.append((-t, (0, split)))
+        if split < ms:
+            segs.append((t, (split, ms)))
+    return segs
+
+
+def plain_wgrad(trav: torch.Tensor, loc: torch.Tensor, out=None, cols=None,
+                split=None, travel_lhs: bool = True) -> torch.Tensor:
+    """trav (P, ms, ct) each rank's shard of the gathered operand, loc (P,
+    P*ms, cl) each rank's resident operand, row block s pairing with rank
+    s's shard -> out (P, ct, cl) f32 with ``out[r] = all_gather(trav)ᵀ @
+    loc[r]`` (``travel_lhs``) or (P, cl, ct) with ``locᵀ @ all_gather``,
+    for the traveller's columns in ``cols`` (default all): each segment's
+    partial of the operands' f32 values, the partials summed in the order
+    of :func:`_wgrad_segments` (rows below ``split``, default ms, are
+    channel 0)."""
+    P, ms, ct = trav.shape
+    cl = loc.shape[2]
+    c0, c1 = cols if cols is not None else (0, ct)
+    split = ms if split is None else split
+    if out is None:
+        out = torch.empty((P, ct, cl) if travel_lhs else (P, cl, ct),
+                          dtype=torch.float32, device=trav.device)
+    t = trav[:, :, c0:c1].float()
+    lb = loc.float().view(P, P, ms, cl)                  # [r, src, i, j]
+    ranks = torch.arange(P, device=trav.device)
+    acc = None
+    for off, (lo, hi) in _wgrad_segments(P, ms, split):
+        src = (ranks + off) % P
+        a, b = t[src, lo:hi], lb[ranks, src, lo:hi]
+        part = a.transpose(1, 2) @ b if travel_lhs else b.transpose(1, 2) @ a
+        acc = part if acc is None else acc + part
+    if travel_lhs:
+        out[:, c0:c1] = acc
+    else:
+        out[:, :, c0:c1] = acc
+    return out
+
+
+def wgrad(trav: torch.Tensor, loc: torch.Tensor, out=None, cols=None,
+          split=None, travel_lhs: bool = True) -> torch.Tensor:
+    """Kernel 16 (replaces ``collective_matmul.py:_wgrad_kernel``). Same
+    contract as :func:`plain_wgrad`; one launch per column block of the
+    traveller (the streaming plan's ``ctb``)."""
+    if trav.device.type != "cuda":
+        return plain_wgrad(trav, loc, out, cols, split, travel_lhs)
+    P, ms, ct = trav.shape
+    cl = loc.shape[2]
+    if tuple(loc.shape) != (P, P * ms, cl):
+        raise ValueError(f"wgrad_kernel: loc {tuple(loc.shape)} does not "
+                         f"match trav {tuple(trav.shape)}")
+    c0, c1 = cols if cols is not None else (0, ct)
+    split = ms if split is None else split
+    if out is None:
+        out = torch.empty((P, ct, cl) if travel_lhs else (P, cl, ct),
+                          dtype=torch.float32, device=trav.device)
+    codes = _operand_codes("wgrad_kernel", trav, loc, out)
+    lib = cuda_build.load("cmatmul")
+    with torch.cuda.device(trav.device):
+        rc = lib.accl_cmatmul_wgrad(
+            *codes, int(travel_lhs), cuda_build.pointer_table(trav),
+            cuda_build.pointer_table(loc), cuda_build.pointer_table(out), P,
+            ms, ct, cl, c0, c1, split, cuda_build.stream_handle(trav.device))
+    cuda_build.check(lib, rc, "wgrad_kernel")
+    wgrad.launches += 1
+    return out
+
+
+wgrad.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # engage policy
 # ---------------------------------------------------------------------------
 
@@ -686,6 +822,34 @@ def mmrs_engages(m: int, k: int, n: int, P: int, dtype,
     """:func:`mmrs_engage_reason` as a bool."""
     return mmrs_engage_reason(m, k, n, P, dtype, overlap, bidirectional,
                               wire_dtype, w_dtype) is None
+
+
+def wgrad_engage_reason(ms: int, ct: int, cl: int, P: int, dtype,
+                        overlap: Optional[bool] = None,
+                        bidirectional: bool = True,
+                        wire_dtype=None, loc_dtype=None,
+                        travel_lhs: bool = True) -> Optional[str]:
+    """:func:`agmm_engage_reason`'s sibling for :func:`gathered_wgrad_body`:
+    the travelling (ms, ct) shard's wire bytes against the forward op's
+    register (``travel_lhs`` keys the agmm table, else the mmrs one) and
+    :func:`wgrad_plan`; worlds below 2 report ``"geometry"``."""
+    if P < 2:
+        return "geometry"
+    wdt = _resolve_wire(wire_dtype, dtype)
+    nbytes = ms * ct * _itemsize(wdt if wdt is not None else dtype)
+    if (overlap is not None and not overlap) or \
+            (overlap is None and not _OVERLAP_DEFAULT):
+        return "off"
+    if not _kernels_available():
+        return "no_interpret"
+    th = _ag_threshold(ct, cl) if travel_lhs else _rs_threshold(cl, ct)
+    if overlap is None and nbytes < th:
+        return "threshold"
+    if wgrad_plan(ms, ct, cl, P, wdt if wdt is not None else dtype,
+                  loc_dtype if loc_dtype is not None else dtype,
+                  bidirectional) is None:
+        return "vmem_miss"
+    return None
 
 
 def _fallback_reason(overlap: Optional[bool], op: str) -> None:
@@ -787,18 +951,127 @@ def matmul_reduce_scatter_body(x: torch.Tensor, w: torch.Tensor, *,
     return out
 
 
+def gathered_wgrad_body(trav: torch.Tensor, loc: torch.Tensor, *,
+                        overlap: Optional[bool] = None,
+                        bidirectional: bool = True, wire_dtype=None,
+                        travel_lhs: bool = True,
+                        op: str = "allgather_matmul"):
+    """The fused dw of both backward passes: trav (P, ms, ct) each rank's
+    shard of the operand the backward must gather (x for d(ag x mm), dy for
+    d(mm x rs)), loc (P, P*ms, cl) each rank's resident operand, whose row
+    block s pairs with rank s's shard. ``travel_lhs=True`` returns (P, ct,
+    cl) f32, ``all_gather(trav)ᵀ @ loc``; False returns (P, cl, ct), ``locᵀ
+    @ all_gather(trav)``. The kernel folds the gather into the contraction
+    (one launch per ``ctb`` column block of the traveller on the streaming
+    arm); the unfused gather and product run where the plan misses or the
+    policy declines, counted under ``{op}_dw``. ``wire_dtype`` stages the
+    traveller; the fallback runs full precision."""
+    P, ms, ct = trav.shape
+    P2, ml, cl = loc.shape
+    if ml != P * ms:
+        raise ValueError(
+            f"wgrad row mismatch: loc rows {ml} != world {P} x shard {ms}")
+    if P2 != P:
+        raise ValueError(f"trav has {P} rank rows, loc has {P2}")
+
+    def _unfused(gathered):
+        # every rank's rows concatenated; the JAX body casts the second
+        # operand to the first's dtype, then contracts in f32
+        a, b = (gathered, loc) if travel_lhs else (loc, gathered)
+        return torch.matmul(a.transpose(-2, -1).float(),
+                            b.to(a.dtype).float())
+
+    if P == 1:
+        return _unfused(trav)
+    wdt, sr = _resolve_wire_codec(wire_dtype, trav.dtype)
+    nbytes = ms * ct * _itemsize(wdt if wdt is not None else trav.dtype)
+    # the traveller keys on its forward op's register
+    th = _ag_threshold(ct, cl) if travel_lhs else _rs_threshold(cl, ct)
+    plan = None
+    if _resolve(overlap, nbytes, th):
+        plan = wgrad_plan(ms, ct, cl, P,
+                          wdt if wdt is not None else trav.dtype, loc.dtype,
+                          bidirectional)
+        if plan is None:
+            _note_fallback(op + "_dw", "vmem_miss")
+    else:
+        _fallback_reason(overlap, op + "_dw")
+    if plan is None:
+        return _unfused(trav.reshape(1, P * ms, ct))
+    tw = _wire_cast(trav, wdt, stochastic=sr).contiguous()
+    loc = loc.contiguous()
+    # the channels split the PADDED rows: channel 1 starts at msp / 2
+    split = min(plan["msp"] // plan["nchan"], ms)
+    ctb = plan.get("ctb", plan["ctp"])
+    out = torch.empty((P, ct, cl) if travel_lhs else (P, cl, ct),
+                      dtype=torch.float32, device=trav.device)
+    for j in range(plan.get("nctb", 1)):
+        # one launch per column block of the traveller, each into a
+        # disjoint block of dw
+        wgrad(tw, loc, out, (j * ctb, min((j + 1) * ctb, ct)), split,
+              travel_lhs)
+    return out
+
+
 # ---------------------------------------------------------------------------
-# entry points
+# entry points: the collective-matmul duality as autograd Functions
 # ---------------------------------------------------------------------------
 
-def _forward_only(what: str, item: str, *tensors) -> None:
-    """Refuse inputs that require grad: the backward of ``what`` is
-    ROADMAP.md queue 1, ``item``."""
-    if any(t.requires_grad for t in tensors):
-        raise ACCLError(errorCode.COLLECTIVE_NOT_IMPLEMENTED,
-                        f"{what}: the backward is not ported yet (ROADMAP.md "
-                        f"queue 1, item {item}); pass tensors that do not "
-                        f"require grad")
+class _AllGatherMatmul(torch.autograd.Function):
+    """``all_gather_matmul``'s forward and backward (the JAX package's
+    ``_agmm_fwd``/``_agmm_bwd``): dx = the row shard of ``dy @ wᵀ``
+    summed over the ranks, which is the matmul x reduce-scatter; dw =
+    ``all_gather(x)ᵀ @ dy``, the gathered wgrad. A gradient no input needs
+    is not computed."""
+
+    @staticmethod
+    def forward(ctx, x, w, overlap, bidirectional, wire_dtype):
+        ctx.save_for_backward(x, w)
+        ctx.opts = {"overlap": overlap, "bidirectional": bidirectional,
+                    "wire_dtype": wire_dtype}
+        return all_gather_matmul_body(x, w, **ctx.opts)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = matmul_reduce_scatter_body(
+                dy.to(x.dtype), w.transpose(1, 2).to(x.dtype),
+                **ctx.opts).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = gathered_wgrad_body(
+                x, dy.to(x.dtype), travel_lhs=True, op="allgather_matmul",
+                **ctx.opts).to(w.dtype)
+        return dx, dw, None, None, None
+
+
+class _MatmulReduceScatter(torch.autograd.Function):
+    """``matmul_reduce_scatter``'s forward and backward (``_mmrs_fwd``/
+    ``_mmrs_bwd``): dx = ``all_gather(dy) @ wᵀ``, the all-gather x
+    matmul; dw = ``xᵀ @ all_gather(dy)``, the gathered wgrad with dy
+    travelling."""
+
+    @staticmethod
+    def forward(ctx, x, w, overlap, bidirectional, wire_dtype):
+        ctx.save_for_backward(x, w)
+        ctx.opts = {"overlap": overlap, "bidirectional": bidirectional,
+                    "wire_dtype": wire_dtype}
+        return matmul_reduce_scatter_body(x, w, **ctx.opts)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = all_gather_matmul_body(
+                dy.to(x.dtype), w.transpose(1, 2).to(x.dtype),
+                **ctx.opts).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = gathered_wgrad_body(
+                dy.to(x.dtype), x, travel_lhs=False,
+                op="matmul_reduce_scatter", **ctx.opts).to(w.dtype)
+        return dx, dw, None, None, None
 
 
 def all_gather_matmul(x: torch.Tensor, w: torch.Tensor,
@@ -808,11 +1081,10 @@ def all_gather_matmul(x: torch.Tensor, w: torch.Tensor,
     column-parallel weight blocks, out (P, P*m, n) f32. ``overlap=None``
     follows the session default and size registers; False pins the
     unfused pair. ``wire_dtype=None`` follows ``ACCLConfig.
-    cmatmul_wire_dtype`` ("off" forces full precision)."""
-    _forward_only("all_gather_matmul", "10b", x, w)
-    return all_gather_matmul_body(x, w, overlap=overlap,
-                                  bidirectional=bidirectional,
-                                  wire_dtype=wire_dtype)
+    cmatmul_wire_dtype`` ("off" forces full precision). Differentiable:
+    the backward runs the dual matmul x reduce-scatter for dx and the
+    gathered wgrad for dw."""
+    return _AllGatherMatmul.apply(x, w, overlap, bidirectional, wire_dtype)
 
 
 def matmul_reduce_scatter(x: torch.Tensor, w: torch.Tensor,
@@ -820,8 +1092,7 @@ def matmul_reduce_scatter(x: torch.Tensor, w: torch.Tensor,
                           bidirectional: bool = True, wire_dtype=None):
     """``reduce_scatter(x @ w, rows)``: x (P, m, k) local rows (m divisible
     by P), w (P, k, n) row-parallel weight blocks, out (P, m/P, n) f32.
-    Same policy as :func:`all_gather_matmul`."""
-    _forward_only("matmul_reduce_scatter", "10b", x, w)
-    return matmul_reduce_scatter_body(x, w, overlap=overlap,
-                                      bidirectional=bidirectional,
-                                      wire_dtype=wire_dtype)
+    Same policy as :func:`all_gather_matmul`. Differentiable: dx runs the
+    dual all-gather x matmul, dw the gathered wgrad of dy."""
+    return _MatmulReduceScatter.apply(x, w, overlap, bidirectional,
+                                      wire_dtype)

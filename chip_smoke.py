@@ -21,13 +21,17 @@ any failure exits non-zero and nothing is caught and skipped:
    bits) and the fused MoE dispatch and combine (worlds 2, 3 and 8,
    bidirectional on and off, an aligned and an uneven shape, f32 and bf16
    wires: integer-valued operands bit-equal, random ones within the f32
-   summation bound, with TF32 off for the plain versions) and the
+   summation bound, with TF32 off for the plain versions) with their
+   a2a-wgrad (both orientations, one and two channels), and the
    collective matmuls' all-gather x matmul and matmul x reduce-scatter
    (worlds 2, 3 and 8, bidirectional on and off, an aligned and a ragged
    shape, resident, k-blocked and accumulator-blocked plans, f32 and a
    bf16 wire: integer operands bit-equal, random ones within the f32
-   summation bound), then time each kernel, its plain version and a
-   one-call PyTorch yardstick at the shapes of the main path;
+   summation bound) with their gathered wgrad (the same worlds and
+   channels, an aligned and a ragged shard, resident and streaming plans,
+   both orientations, f32 and a bf16 wire), then time each kernel, its
+   plain version and a one-call PyTorch yardstick at the shapes of the
+   main path;
 3. the main path, each part with every launch counter set to 0 just
    before it and read just after:
    a. ``ACCL(world=8)`` runs AUTO all-reduce, f32 SUM, from 4 B to 1 GiB
@@ -76,6 +80,16 @@ any failure exits non-zero and nothing is caught and skipped:
       then the fused collective
       matmuls against the unfused pair at the lane shape (m 256, k 512,
       n 512; the resident plans);
+   g. the Megatron MLP train step at the same width, (dp 1, tp 8), 2048
+      tokens, f32, SGD: the fused step (per step agmm_kernel 2, mmrs_kernel
+      2 and wgrad_kernel 8 launches, as the ported plans give) and the psum
+      baseline (none); loss, gradients and new parameters fused against
+      baseline and both against a float64 step; p50 and tokens/s of each;
+   h. the Switch-Base-8 MoE layer forward and backward at the width of
+      phase e, tokens requiring grad: the fused path (a2a_mm_kernel,
+      mm_a2a_kernel and a2a_wgrad_kernel twice each) and the baseline
+      (none); output and the gradients of router, w_in, w_out and tokens
+      fused against baseline and both against float64; p50 of each;
 4. print the ``kernels`` line, the card line and, last, the device line.
 
 Exits 2 without printing a result when no CUDA device is visible.
@@ -375,12 +389,14 @@ def f32_sum_bound(k: int, mag):
 
 
 def check_moe_kernels(gen) -> None:
-    """a2a_mm_kernel and mm_a2a_kernel against their plain versions at
-    worlds 2, 3 and 8, bidirectional on and off, the aligned shape (e_local,
-    C, d, h) = (2, 8, 128, 128) and the uneven (2, 5, 72, 40), f32 and bf16
-    wires (the dispatch's token payload, the combine's rounded output):
-    integer-valued operands bit-equal, random ones within
-    :func:`f32_sum_bound`. The plain versions run with TF32 off."""
+    """a2a_mm_kernel, mm_a2a_kernel and a2a_wgrad_kernel against their plain
+    versions at worlds 2, 3 and 8, bidirectional on and off (the wgrad's
+    one or two channels), the aligned shape (e_local, C, d, h) = (2, 8, 128,
+    128) and the uneven (2, 5, 72, 40), f32 and bf16 wires (the dispatch's
+    token payload, the combine's rounded output, the wgrad's traveller),
+    the wgrad in both orientations: integer-valued operands bit-equal,
+    random ones within :func:`f32_sum_bound`. The plain versions run with
+    TF32 off."""
     import torch
     from accl_tpu_torch.ops import collective_alltoall as ca
 
@@ -410,6 +426,17 @@ def check_moe_kernels(gen) -> None:
                                        ca.plain_mm_a2a(hx, wo, wire)):
                         fail(f"mm_a2a_kernel != plain ({case})")
                     n_cases += 2
+                    # the dw legs: x travels against dy (dispatch), dy
+                    # against h (the combine's mirror); the channels order
+                    # the sum over sources
+                    nchan = 2 if bidir and P >= 4 else 1
+                    for lhs in (True, False):
+                        if not torch.equal(
+                                ca.a2a_wgrad(x, hx, nchan, lhs),
+                                ca.plain_a2a_wgrad(x, hx, nchan, lhs)):
+                            fail(f"a2a_wgrad_kernel != plain ({case} "
+                                 f"travel_lhs={lhs})")
+                        n_cases += 1
             x = torch.randn((P, P * el, C, d), generator=gen, device="cuda")
             w = torch.randn((P, el, d, h), generator=gen, device="cuda")
             hx = torch.randn((P, el, P * C, h), generator=gen, device="cuda")
@@ -419,7 +446,10 @@ def check_moe_kernels(gen) -> None:
                      ca.plain_a2a_mm(x.abs(), w.abs()), d),
                     ("mm_a2a_kernel", ca.mm_a2a(hx, wo),
                      ca.plain_mm_a2a(hx, wo),
-                     ca.plain_mm_a2a(hx.abs(), wo.abs()), h)):
+                     ca.plain_mm_a2a(hx.abs(), wo.abs()), h),
+                    ("a2a_wgrad_kernel", ca.a2a_wgrad(x, hx, 2),
+                     ca.plain_a2a_wgrad(x, hx, 2),
+                     ca.plain_a2a_wgrad(x.abs(), hx.abs(), 2), P * C)):
                 err = (got - want).abs()
                 if bool((err > f32_sum_bound(k, mag)).any()):
                     fail(f"{name} random f32 outside the f32 sum bound "
@@ -462,12 +492,112 @@ class plain_kernels:
 
     def __enter__(self):
         from accl_tpu_torch.ops import collective_matmul as cm
-        self.saved = (cm.agmm, cm.mmrs)
-        cm.agmm, cm.mmrs = cm.plain_agmm, cm.plain_mmrs
+        self.saved = (cm.agmm, cm.mmrs, cm.wgrad)
+        cm.agmm, cm.mmrs, cm.wgrad = (cm.plain_agmm, cm.plain_mmrs,
+                                      cm.plain_wgrad)
 
     def __exit__(self, *exc):
         from accl_tpu_torch.ops import collective_matmul as cm
-        cm.agmm, cm.mmrs = self.saved
+        cm.agmm, cm.mmrs, cm.wgrad = self.saved
+
+
+def wgrad_budgets(ms: int, ct: int, cl: int, P: int, bidir: bool,
+                  wire) -> dict:
+    """{mode: budget} of the port's wgrad plan for a shape: the first budget
+    of a descending ladder giving "resident" and "stream" (the traveller's
+    columns in ``nctb`` > 1 blocks)."""
+    import torch
+    from accl_tpu_torch.ops import collective_matmul as cm
+    wdt = cm._resolve_wire(wire, torch.float32)
+    saved, modes = cm._VMEM_BUDGET, {}
+    try:
+        for b in (12 << 20, 1 << 20, 512 << 10, 320 << 10, 256 << 10,
+                  200 << 10, 150 << 10, 128 << 10, 96 << 10):
+            cm._VMEM_BUDGET = b
+            p = cm.wgrad_plan(ms, ct, cl, P, wdt or torch.float32,
+                              torch.float32, bidir)
+            if p is not None:
+                modes.setdefault("stream" if p.get("nctb", 1) > 1
+                                 else "resident", b)
+    finally:
+        cm._VMEM_BUDGET = saved
+    return modes
+
+
+def check_wgrad_kernel(gen) -> None:
+    """wgrad_kernel against its plain version, driven by
+    ``gathered_wgrad_body`` (which picks the column blocks and the channel
+    split from its plan): worlds 2, 3 and 8, bidirectional on and off (P >=
+    4), an aligned shard (ms, ct, cl) = (64, 256, 256) and a ragged one (12,
+    256, 40: channel 1 from row 8), the resident and the streaming plan
+    (nctb > 1), both orientations, f32 and a bf16 wire: integer operands
+    bit-equal (the traveller past bf16's 8 bits on the wire), random ones
+    within :func:`f32_sum_bound` over the P ms products. The plain versions
+    run with TF32 off."""
+    import torch
+    from accl_tpu_torch.ops import collective_matmul as cm
+
+    def ints(shape, lo, hi):
+        return torch.randint(lo, hi, shape, generator=gen,
+                             device="cuda").float()
+
+    n_cases, worst, seen = 0, 0.0, set()
+    saved = cm._VMEM_BUDGET
+    try:
+        for P in (2, 3, 8):
+            for ms, ct, cl in ((64, 256, 256), (12, 256, 40)):
+                for bidir in ((False, True) if P >= 4 else (False,)):
+                    for wire in ("off", "bf16"):
+                        for mode, budget in wgrad_budgets(
+                                ms, ct, cl, P, bidir, wire).items():
+                            cm._VMEM_BUDGET = budget
+                            for lhs in (True, False):
+                                case = f"P={P} {(ms, ct, cl)} bidir={bidir} " \
+                                    f"wire={wire} {mode} travel_lhs={lhs}"
+                                lo = -600 if wire == "bf16" else -9
+                                trav = ints((P, ms, ct), lo, -lo)
+                                loc = ints((P, P * ms, cl), -9, 10)
+
+                                def run(a, b):
+                                    return cm.gathered_wgrad_body(
+                                        a, b, overlap=True,
+                                        bidirectional=bidir,
+                                        wire_dtype=wire, travel_lhs=lhs)
+
+                                got = run(trav, loc)
+                                with plain_kernels():
+                                    want = run(trav, loc)
+                                if not torch.equal(got, want):
+                                    fail(f"wgrad_kernel != plain ({case})")
+                                seen.add(mode)
+                                n_cases += 1
+                                if wire == "bf16":
+                                    continue
+                                trav = torch.randn((P, ms, ct), generator=gen,
+                                                   device="cuda")
+                                loc = torch.randn((P, P * ms, cl),
+                                                  generator=gen,
+                                                  device="cuda")
+                                got = run(trav, loc)
+                                with plain_kernels():
+                                    want = run(trav, loc)
+                                    mag = run(trav.abs(), loc.abs())
+                                err = (got - want).abs()
+                                if bool((err > f32_sum_bound(P * ms,
+                                                             mag)).any()):
+                                    fail(f"wgrad_kernel random f32 outside "
+                                         f"the f32 sum bound ({case})")
+                                worst = max(worst, err.max().item())
+                                n_cases += 1
+    finally:
+        cm._VMEM_BUDGET = saved
+    for mode in ("resident", "stream"):
+        if mode not in seen:
+            fail(f"phase 2 never ran wgrad_kernel in its {mode} plan")
+    torch.cuda.synchronize()
+    log(f"phase 2: {n_cases} wgrad kernel-vs-plain cases over {sorted(seen)} "
+        f"(integer operands bit-equal; random within the f32 sum bound, "
+        f"max|err| {worst!r})")
 
 
 def check_cmatmul_kernels(gen) -> None:
@@ -869,13 +999,16 @@ SWITCH = {"d": 768, "h": 3072, "E": 8, "P": 8, "n": 2048, "C": 320}
 
 
 def measure_moe_kernels(gen) -> dict:
-    """a2a_mm_kernel and mm_a2a_kernel at the Switch-Base-8 shapes of phase
-    3e (f32): dispatch x (8, 8, 320, 768) with w_in (8, 1, 768, 3072),
-    combine h (8, 1, 2560, 3072) with w_out (8, 1, 3072, 768). Bounds: the
-    larger of the bytes (inputs read once, the output written once) over
-    3.35 TB/s and the 2 P (P C) K N f32 operations over the CUDA cores' f32
-    rate (:func:`f32_peak_flops`); the tensor cores' TF32 rate is the later
-    target. Yardstick: the unfused pair (permute, then ``torch.einsum``)."""
+    """a2a_mm_kernel, mm_a2a_kernel and a2a_wgrad_kernel at the
+    Switch-Base-8 shapes of phases 3e and 3h (f32): dispatch x (8, 8, 320,
+    768) with w_in (8, 1, 768, 3072), combine h (8, 1, 2560, 3072) with
+    w_out (8, 1, 3072, 768), the dispatch's dw x (8, 8, 320, 768) against
+    dy (8, 1, 2560, 3072) into (8, 1, 768, 3072) (its mirror, the combine's
+    dw, logged). Bounds: the larger of the bytes (inputs read once, the
+    output written once) over 3.35 TB/s and the 2 P (P C) K N f32
+    operations over the CUDA cores' f32 rate (:func:`f32_peak_flops`); the
+    tensor cores' TF32 rate is the later target. Yardstick: the unfused
+    pair (permute, then ``torch.einsum``)."""
     import torch
     from accl_tpu_torch.ops import collective_alltoall as ca
 
@@ -923,7 +1056,19 @@ def measure_moe_kernels(gen) -> dict:
            ca.plain_mm_a2a(hx.abs(), wo.abs()), h, hx, wo,
            lambda: ca.mm_a2a(hx, wo), lambda: ca.plain_mm_a2a(hx, wo),
            lambda: ca.xla_matmul_alltoall(hx, wo))
-    del x, w, hx, wo
+    # the dispatch's dw: x travels, dy (the shape of the dispatch's output)
+    # stays; two channels, as the bidirectional plan at world 8 orders them
+    dy = torch.randn((P, el, P * C, h), generator=gen, device="cuda")
+    record("a2a_wgrad_kernel", ca.a2a_wgrad(x, dy, 2),
+           ca.plain_a2a_wgrad(x, dy, 2),
+           ca.plain_a2a_wgrad(x.abs(), dy.abs(), 2), P * C, x, dy,
+           lambda: ca.a2a_wgrad(x, dy, 2),
+           lambda: ca.plain_a2a_wgrad(x, dy, 2),
+           lambda: torch.einsum("rept,repl->retl",
+                                ca._all_to_all_in(x, el), dy))
+    log(f"  a2a_wgrad_kernel mirror (the combine's dw, (8, 1, 3072, 768)): "
+        f"{time_ms(lambda: ca.a2a_wgrad(x, dy, 2, False), 10)!r} ms")
+    del x, w, hx, wo, dy
     torch.cuda.empty_cache()
     return res
 
@@ -948,19 +1093,33 @@ def cmatmul_operands(gen, P: int, m: int, k: int, n: int):
     return x, xr, w
 
 
+def plan_note(plan: dict) -> str:
+    """A collective-matmul plan in a few words: its arm and launches."""
+    if "ctb" in plan or "msp" in plan:
+        return (f"{'stream' if 'ctb' in plan else 'resident'}, ctb "
+                f"{plan.get('ctb', plan['ctp'])}, launches "
+                f"{plan.get('nctb', 1)}")
+    return (f"{plan['mode']}, kb {plan['kb']}, launches "
+            f"{plan.get('nmb', plan.get('nnb', 1))}")
+
+
 def measure_cmatmul_kernels(gen) -> dict:
-    """agmm_kernel and mmrs_kernel at the shapes phase 3f gives them at
-    Megatron-LM 8.3B's width (f32, P 8): agmm x (8, 256, 3072) with w1's
-    column blocks (8, 3072, 1536) in one launch (the stream plan's nmb 1);
-    mmrs the activations (8, 2048, 1536) with w2's row blocks (8, 1536,
-    3072) in two launches, one per 1536-column block (nnb 2), timed
-    together as one call. Bounds: the larger of the bytes (inputs read
-    once, the output written once) over 3.35 TB/s and the 2 P (P m) k n
-    f32 operations over the CUDA cores' rate (:func:`f32_peak_flops`); the
-    TF32 tensor cores' is the later target. Library: ``torch.matmul(x.
-    reshape(P*m, k), w)`` for agmm and ``torch.matmul(x, w).view(P, P, mc,
-    n).sum(0)`` for mmrs. Then both at the lane shape (the resident plans),
-    logged with their bounds."""
+    """agmm_kernel, mmrs_kernel and wgrad_kernel at the shapes phases 3f and
+    3g give them at Megatron-LM 8.3B's width (f32, P 8): agmm x (8, 256,
+    3072) with w1's column blocks (8, 3072, 1536) in one launch (the stream
+    plan's nmb 1); mmrs the activations (8, 2048, 1536) with w2's row
+    blocks (8, 1536, 3072) in two launches, one per 1536-column block (nnb
+    2); wgrad x (8, 256, 3072) travelling against dy (8, 2048, 1536) into
+    dw (8, 3072, 1536) in four launches, one per 768-column block of the
+    traveller (nctb 4); each call's launches timed together. Bounds: the
+    larger of the bytes (inputs read once, the output written once) over
+    3.35 TB/s and the 2 P (P m) k n f32 operations over the CUDA cores'
+    rate (:func:`f32_peak_flops`); the TF32 tensor cores' is the later
+    target. Library: ``torch.matmul(x.reshape(P*m, k), w)`` for agmm,
+    ``torch.matmul(x, w).view(P, P, mc, n).sum(0)`` for mmrs and one
+    ``torch.bmm`` of the transposed gather against dy for wgrad.
+    Then the three at the lane shape (the resident plans), logged with
+    their bounds."""
     import torch
     from accl_tpu_torch.ops import collective_matmul as cm
 
@@ -986,10 +1145,25 @@ def measure_cmatmul_kernels(gen) -> dict:
                       for _ in range(2))
         rs_k, rs_p = (torch.empty((P, m, k), device="cuda")
                       for _ in range(2))
+        # dw of the all-gather x matmul: x travels against dy (P, P m, n)
+        dy = torch.randn((P, P * m, n), generator=gen, device="cuda")
+        dw_plan = cm.wgrad_plan(m, k, n, P, torch.float32, torch.float32,
+                                True)
+        ctb = dw_plan.get("ctb", dw_plan["ctp"])
+        dw_blocks = [(j * ctb, min((j + 1) * ctb, k))
+                     for j in range(dw_plan.get("nctb", 1))]
+        dw_split = min(dw_plan["msp"] // 2, m)
+        dw_k, dw_p = (torch.empty((P, k, n), device="cuda")
+                      for _ in range(2))
 
         def rs(fn, out):
             for cols in blocks:
                 fn(hr, wr, out, cols, split)
+            return out
+
+        def dw(fn, out, a=x, b=dy):
+            for cols in dw_blocks:
+                fn(a, b, out, cols, dw_split)
             return out
 
         return {
@@ -1007,7 +1181,16 @@ def measure_cmatmul_kernels(gen) -> dict:
                 lambda: cm.plain_mmrs(hr.abs(), wr.abs(), split=split),
                 2 * P * (P * m) * n * k,
                 (hr.numel() + wr.numel() + rs_k.numel()) * 4, P * n,
-                [list(hr.shape), list(wr.shape)], rs_plan)}
+                [list(hr.shape), list(wr.shape)], rs_plan),
+            "wgrad_kernel": (
+                lambda: dw(cm.wgrad, dw_k), lambda: dw(cm.plain_wgrad, dw_p),
+                lambda: torch.bmm(x.reshape(P * m, k).t().expand(P, k, P * m),
+                                  dy),
+                lambda: dw(cm.plain_wgrad, torch.empty_like(dw_p), x.abs(),
+                           dy.abs()),
+                2 * P * (P * m) * k * n,
+                (x.numel() + dy.numel() + dw_k.numel()) * 4, P * m,
+                [list(x.shape), list(dy.shape)], dw_plan)}
 
     tokens = MEGATRON["tokens"]
     mega = calls(tokens // P, MEGATRON["d"], MEGATRON["h"] // P)
@@ -1028,8 +1211,7 @@ def measure_cmatmul_kernels(gen) -> dict:
             "tensor_core_bound_ms": max(by_bytes,
                                         flops / TF32_TC_FLOPS * 1e3)}
         r = res[name]
-        log(f"  {name} {shape} ({plan['mode']}, kb {plan['kb']}, launches "
-            f"{plan.get('nmb', plan.get('nnb', 1))}): kernel {r['ms']!r} ms, "
+        log(f"  {name} {shape} ({plan_note(plan)}): kernel {r['ms']!r} ms, "
             f"plain {r['plain_ms']!r} ms, library {r['library_ms']!r} ms, "
             f"bound {r['bound_ms']!r} ms ({r['bound_by']}; TF32 tensor "
             f"cores {r['tensor_core_bound_ms']!r} ms), max_abs_err "
@@ -1041,7 +1223,7 @@ def measure_cmatmul_kernels(gen) -> dict:
     for name, (kern, plain, lib, _, flops, nbytes, _, shape,
                plan) in lane.items():
         by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        log(f"  {name} lane shape {shape} ({plan['mode']}): kernel "
+        log(f"  {name} lane shape {shape} ({plan_note(plan)}): kernel "
             f"{time_ms(kern, 10)!r} ms, plain {time_ms(plain, 10)!r} ms, "
             f"library {time_ms(lib, 10)!r} ms, bound "
             f"{max(by_bytes, flops / peak * 1e3)!r} ms (TF32 tensor cores "
@@ -1083,7 +1265,9 @@ def wrappers() -> dict:
             "a2a_mm_kernel": ca.a2a_mm,
             "mm_a2a_kernel": ca.mm_a2a,
             "agmm_kernel": cm.agmm,
-            "mmrs_kernel": cm.mmrs}
+            "mmrs_kernel": cm.mmrs,
+            "wgrad_kernel": cm.wgrad,
+            "a2a_wgrad_kernel": ca.a2a_wgrad}
 
 
 def counts() -> dict:
@@ -1721,6 +1905,267 @@ def tp_mlp_paths(gen, kernel_ms: dict) -> dict:
     return counts()
 
 
+def check_grads(what: str, got, ref, rel: float) -> float:
+    """Fail unless ``|got - ref| <= rel (max|ref| + |ref|)`` elementwise;
+    returns max|got - ref| / max|ref|."""
+    diff = (got.double() - ref.double()).abs()
+    top = ref.double().abs().max().item()
+    if bool((diff > rel * (top + ref.double().abs())).any()):
+        fail(f"{what}: outside {rel} of the largest magnitude (max|diff| "
+             f"{diff.max().item()!r}, max|ref| {top!r})")
+    return diff.max().item() / top
+
+
+#: the gradients' tolerance against each other and float64: each element
+#: sums f32 products over 2048-16384 rows (tokens) and 3072-12288 columns,
+#: in other orders on each path; their rounding is about sqrt(K) 2^-24 of
+#: the products' absolute sum, which for random signs is sqrt(K) times an
+#: element's size: up to about 2e-5 of the largest element
+GRAD_REL = 1e-4
+
+
+def tp_train_paths(gen, kernel_ms: dict) -> dict:
+    """Phase 3g: the Megatron-LM 8.3B MLP train step (:data:`MEGATRON`;
+    random weights, biases and targets from a seed), world 8 = (dp 1, tp
+    8), 2048 tokens, f32, SGD at lr 1e-2: the fused step (``overlap=True``)
+    must launch per step what the ported plans give (agmm_kernel for the
+    forward and for dx of the matmul x reduce-scatter, mmrs_kernel for the
+    forward only, since x needs no gradient, wgrad_kernel ``nctb`` times
+    for each of the two dws), the psum baseline no kernel. The loss, the
+    gradients (``make_loss_and_grads``) and the new parameters are checked
+    fused against baseline and both against a float64 step of the dense
+    block, whose gradients of w1, b1 and w2 are scaled by tp as the JAX
+    step's are; p50 and tokens/s of each step. ``kernel_ms``: the kernels'
+    times at these shapes (phase 2). Returns the launch counts of this
+    part."""
+    import torch
+    import torch.nn.functional as F
+    from accl_tpu_torch import Communicator
+    from accl_tpu_torch.models import mlp
+    from accl_tpu_torch.ops import collective_matmul as cm
+
+    d, h, tp, n = (MEGATRON[k] for k in ("d", "h", "tp", "tokens"))
+    lr, f32 = 1e-2, torch.float32
+    comm = Communicator(tp, "cuda")
+    dense = mlp.init_params(gen, d, h)
+    dense = dense._replace(
+        b1=torch.randn((h,), generator=gen, device="cuda") * 0.1,
+        b2=torch.randn((d,), generator=gen, device="cuda") * 0.1)
+    params = mlp.shard_params(dense, comm, 1, tp)
+    x = torch.randn((n, d), generator=gen, device="cuda")
+    t = torch.randn((n, d), generator=gen, device="cuda")
+    ms, hl = n // tp, h // tp
+
+    def planned(p):
+        return p.get("nmb", p.get("nnb", p.get("nctb", 1)))
+    # dx of the matmul x reduce-scatter is an all-gather x matmul of the
+    # forward's shape, and both dws have one (ms, d) traveller against
+    # (n, h/tp) rows
+    expect = {"agmm_kernel": 2 * planned(cm.agmm_plan(ms, d, hl, tp, f32,
+                                                      True)),
+              "mmrs_kernel": planned(cm.mmrs_plan(n, hl, d, tp, f32, True)),
+              "wgrad_kernel": 2 * planned(cm.wgrad_plan(ms, d, hl, tp, f32,
+                                                        f32, True))}
+    fused = mlp.make_train_step(comm, 1, tp, lr, overlap=True)
+    base = mlp.make_train_step(comm, 1, tp, lr, overlap=False)
+    reset_counts()
+    new_f, loss_f = fused(params, x, t)
+    c1 = counts()
+    fired = {k: v for k, v in c1.items() if v}
+    if fired != expect:
+        fail(f"one fused train step launched {fired}, the ported plans give "
+             f"{expect}")
+    new_b, loss_b = base(params, x, t)
+    if counts() != c1:
+        fail("the psum baseline's train step launched a kernel")
+    p50_f = p50_call(lambda: fused(params, x, t), 5)
+    c2 = counts()
+    p50_b = p50_call(lambda: base(params, x, t), 5)
+    if counts() != c2 or any(c2[k] != 7 * v for k, v in expect.items()):
+        fail(f"unexpected launches over the timed steps: {counts()}")
+    loss_gf, g_f = mlp.make_loss_and_grads(comm, 1, tp, overlap=True)(
+        params, x, t)
+    loss_gb, g_b = mlp.make_loss_and_grads(comm, 1, tp, overlap=False)(
+        params, x, t)
+    # the float64 step of the dense block, scaled as the JAX step scales
+    w64 = [p.detach().double().requires_grad_() for p in dense]
+    y64 = F.gelu(x.double() @ w64[0] + w64[1], approximate="tanh") \
+        @ w64[2] + w64[3]
+    loss64 = ((y64 - t.double()) ** 2).mean()
+    loss64.backward()
+    scaled = mlp.MLPParams(w64[0].grad * tp, w64[1].grad * tp,
+                           w64[2].grad * tp, w64[3].grad)
+    g64 = mlp.shard_params(scaled, comm, 1, tp)
+    new64 = mlp.shard_params(mlp.MLPParams(
+        *(p.detach() - lr * g for p, g in zip(w64, scaled))), comm, 1, tp)
+    errs = {}
+    for name, a, b in (("loss fused - baseline", loss_f, loss_b),
+                       ("loss fused - f64", loss_f, loss64),
+                       ("loss baseline - f64", loss_b, loss64),
+                       ("grads' loss fused - step's", loss_gf, loss_f),
+                       ("grads' loss baseline - step's", loss_gb, loss_b)):
+        errs[name] = abs(a.item() - b.item())
+        if errs[name] > 1e-5 * abs(b.item()):
+            fail(f"MLP {name}: {a.item()!r} vs {b.item()!r}")
+    for field, gf, gb, gd in zip(mlp.MLPParams._fields, g_f, g_b, g64):
+        errs[f"d{field} fused - baseline"] = check_grads(
+            f"MLP d{field} fused - baseline", gf, gb, GRAD_REL)
+        errs[f"d{field} fused - f64"] = check_grads(
+            f"MLP d{field} fused - f64", gf, gd, GRAD_REL)
+        errs[f"d{field} baseline - f64"] = check_grads(
+            f"MLP d{field} baseline - f64", gb, gd, GRAD_REL)
+    # the new parameters: the update is lr g, a few thousandths of the
+    # weights, so the f32 rounding of w - lr g bounds their differences
+    for field, pf, pb, pd in zip(mlp.MLPParams._fields, new_f, new_b, new64):
+        for name, a, b in (("fused - baseline", pf, pb),
+                           ("fused - f64", pf, pd),
+                           ("baseline - f64", pb, pd)):
+            diff = (a.double() - b.double()).abs()
+            bad = int((diff > 1e-6 + 1e-5 * b.double().abs()).sum())
+            if bad:
+                fail(f"MLP new {field} {name}: {bad} elements outside rtol "
+                     f"1e-5 atol 1e-6 (max|diff| {diff.max().item()!r})")
+    log(f"tp-mlp train step, Megatron-LM 8.3B block (d {d}, ffn {h}), world "
+        f"{tp} (dp 1, tp {tp}), {n} tokens, lr {lr}: fused p50 "
+        f"{p50_f * 1e6!r} us ({n / p50_f!r} tokens/s), launches "
+        f"{json.dumps(fired)} per step (the plans give "
+        f"{json.dumps(expect)}), kernels agmm {kernel_ms['agmm_kernel']!r} "
+        f"+ mmrs {kernel_ms['mmrs_kernel']!r} + wgrad "
+        f"{kernel_ms['wgrad_kernel']!r} ms per call; baseline p50 "
+        f"{p50_b * 1e6!r} us ({n / p50_b!r} tokens/s); loss "
+        f"{loss_f.item()!r}; errors {json.dumps(errs)}")
+    del new_f, new_b, g_f, g_b, g64, new64, w64, y64, scaled, params, dense
+    del x, t
+    torch.cuda.empty_cache()
+    return counts()
+
+
+class relu_pattern:
+    """Within this block ``torch.relu`` records the sign pattern of each
+    input (``masks`` None), or applies the recorded ones in turn as ``t *
+    mask``, whose gradient is the mask, and counts the entries where the
+    input's own sign disagrees (``flips``). The MoE layer's gradient jumps
+    where an expert's pre-activation crosses 0, and one within rounding of
+    0 may fall either side in f32 and float64: replaying an f32 run's
+    pattern makes the float64 step take that run's side of every kink."""
+
+    def __init__(self, masks=None):
+        self.replay = masks is not None
+        self.masks = list(masks or [])
+        self.flips = 0
+
+    def __enter__(self):
+        import torch
+        self.relu = torch.relu
+
+        def relu(t):
+            if not self.replay:
+                self.masks.append(t.detach() > 0)
+                return self.relu(t)
+            m = self.masks.pop(0)
+            self.flips += int(((t.detach() > 0) != m).sum())
+            return t * m.to(t.dtype)
+        torch.relu = relu
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.relu = self.relu
+
+
+def moe_train_paths(gen, kernel_ms: dict) -> dict:
+    """Phase 3h: the Switch-Base-8 MoE layer forward and backward
+    (:data:`SWITCH`; random weights, tokens and output cotangent from a
+    seed), world 8, 2048 tokens per rank, capacity 320, the tokens
+    requiring grad as a layer inside a model does: the fused path must
+    launch a2a_mm_kernel, mm_a2a_kernel and a2a_wgrad_kernel twice each
+    (forward, the duals' dx, the two dws), the baseline none. The output
+    and the gradients of the router, w_in, w_out and the tokens are
+    checked fused against baseline and each against the baseline run in
+    float64 on that path's ReLU pattern (:class:`relu_pattern`; where the
+    two f32 paths' patterns differ, w_in's and the tokens' gradients are
+    held to their float64 steps only); p50 of forward and backward, fused
+    and baseline.
+    ``kernel_ms``: the kernels' times at these shapes (phase 2). Returns
+    the launch counts of this part."""
+    import torch
+    from accl_tpu_torch import Communicator
+    from accl_tpu_torch.models import moe
+
+    P, E, C, d, h, n = (SWITCH[k] for k in ("P", "E", "C", "d", "h", "n"))
+    comm = Communicator(P, "cuda")
+    params = moe.shard_params(moe.init_params(gen, comm, d, h, E), comm)
+    x = torch.randn((P, n, d), generator=gen, device="cuda")
+    cot = torch.randn((P, n, d), generator=gen, device="cuda")
+    fused = moe.build_moe_forward(comm, E, C, overlap=True)
+    base = moe.build_moe_forward(comm, E, C, overlap=False)
+
+    def fwd_bwd(prog, ps, xs, cs):
+        ps = moe.MoEParams(*(q.detach().requires_grad_() for q in ps))
+        xs = xs.detach().requires_grad_()
+        out = prog(ps, xs)
+        (out * cs).sum().backward()
+        return out.detach(), [q.grad for q in (*ps, xs)]
+
+    expect = {"a2a_mm_kernel": 2, "mm_a2a_kernel": 2, "a2a_wgrad_kernel": 2}
+    reset_counts()
+    with relu_pattern() as pat_f:
+        yf, gf = fwd_bwd(fused, params, x, cot)
+    c1 = counts()
+    fired = {k: v for k, v in c1.items() if v}
+    if fired != expect:
+        fail(f"one fused MoE forward and backward launched {fired}, not "
+             f"{expect}")
+    with relu_pattern() as pat_b:
+        yb, gb = fwd_bwd(base, params, x, cot)
+    if counts() != c1:
+        fail("the MoE baseline's backward launched a kernel")
+    p50_f = p50_call(lambda: fwd_bwd(fused, params, x, cot), 5)
+    p50_b = p50_call(lambda: fwd_bwd(base, params, x, cot), 5)
+    if not bool(torch.isfinite(yf).all()) or tuple(yf.shape) != (P, n, d):
+        fail("MoE fused output not finite or misshapen")
+    kinks = int((pat_f.masks[0] != pat_b.masks[0]).sum())
+    p64 = moe.MoEParams(*(q.double() for q in params))
+    errs = {"relu pattern fused != baseline": kinks}
+    fields = ("router", "w_in", "w_out", "x")
+    for path, y, g, pat in (("fused", yf, gf, pat_f),
+                            ("baseline", yb, gb, pat_b)):
+        with relu_pattern(pat.masks) as rep:
+            y64, g64 = fwd_bwd(base, p64, x.double(), cot.double())
+        errs[f"relu signs flipped in f64 ({path})"] = rep.flips
+        diff = (y.double() - y64).abs()
+        errs[f"y {path} - f64"] = diff.max().item()
+        bad = int((diff > 1e-5 + 1e-5 * y64.abs()).sum())
+        if bad:
+            fail(f"MoE y {path} - f64: {bad} elements outside rtol 1e-5 atol "
+                 f"1e-5")
+        for field, a, c in zip(fields, g, g64):
+            errs[f"d{field} {path} - f64"] = check_grads(
+                f"MoE d{field} {path} - f64", a, c, GRAD_REL)
+    diff = (yf - yb).abs()
+    errs["y fused - baseline"] = diff.max().item()
+    if bool((diff > 1e-6 + 1e-5 * yb.abs()).any()):
+        fail("MoE y fused - baseline outside rtol 1e-5 atol 1e-6")
+    # w_in's and the tokens' gradients jump at the kinks; the router's and
+    # w_out's do not (the output is continuous there)
+    for field, a, b in zip(fields, gf, gb):
+        if kinks == 0 or field in ("router", "w_out"):
+            errs[f"d{field} fused - baseline"] = check_grads(
+                f"MoE d{field} fused - baseline", a, b, GRAD_REL)
+    tokens = P * n
+    log(f"moe forward + backward, Switch-Base-8 world {P}, {n} tokens/rank, "
+        f"C {C}: fused p50 {p50_f * 1e6!r} us ({tokens / p50_f!r} tokens/s), "
+        f"launches {json.dumps(fired)}, kernels a2a_mm "
+        f"{kernel_ms['a2a_mm_kernel']!r} + mm_a2a "
+        f"{kernel_ms['mm_a2a_kernel']!r} + a2a_wgrad "
+        f"{kernel_ms['a2a_wgrad_kernel']!r} ms per call; baseline p50 "
+        f"{p50_b * 1e6!r} us ({tokens / p50_b!r} tokens/s); errors "
+        f"{json.dumps(errs)}")
+    del yf, yb, y64, gf, gb, g64, p64, pat_f, pat_b, params, x, cot
+    torch.cuda.empty_cache()
+    return counts()
+
+
 # ---------------------------------------------------------------------------
 
 REPLACES = {
@@ -1739,6 +2184,8 @@ REPLACES = {
     "mm_a2a_kernel": "accl_tpu/ops/collective_alltoall.py:349",
     "agmm_kernel": "accl_tpu/ops/collective_matmul.py:418",
     "mmrs_kernel": "accl_tpu/ops/collective_matmul.py:543",
+    "wgrad_kernel": "accl_tpu/ops/collective_matmul.py:1050",
+    "a2a_wgrad_kernel": "accl_tpu/ops/collective_alltoall.py:466",
 }
 #: the streaming variant each kernel replaces as well
 ALSO_REPLACES = {
@@ -1752,7 +2199,8 @@ SOURCE = {"ring_rs_kernel": "ring.cu", "ring_ag_kernel": "ring.cu",
           "scatter_relay_kernel": "ring.cu", "gather_relay_kernel": "ring.cu",
           "alltoall_phase_kernel": "ring.cu", "a2a_mm_kernel": "a2a.cu",
           "mm_a2a_kernel": "a2a.cu", "agmm_kernel": "cmatmul.cu",
-          "mmrs_kernel": "cmatmul.cu"}
+          "mmrs_kernel": "cmatmul.cu", "wgrad_kernel": "cmatmul.cu",
+          "a2a_wgrad_kernel": "a2a.cu"}
 #: the part of phase 3 whose launch counts each kernel's entry reports
 PART = {"ring_rs_kernel": "allreduce", "ring_ag_kernel": "allreduce",
         "chunked_rs_kernel": "allreduce", "chunked_ag_kernel": "allreduce",
@@ -1761,7 +2209,8 @@ PART = {"ring_rs_kernel": "allreduce", "ring_ag_kernel": "allreduce",
         "scatter_relay_kernel": "rooted", "gather_relay_kernel": "rooted",
         "alltoall_phase_kernel": "alltoall", "a2a_mm_kernel": "moe",
         "mm_a2a_kernel": "moe", "agmm_kernel": "tp_mlp",
-        "mmrs_kernel": "tp_mlp"}
+        "mmrs_kernel": "tp_mlp", "wgrad_kernel": "tp_train",
+        "a2a_wgrad_kernel": "moe_train"}
 
 
 def main() -> int:
@@ -1793,6 +2242,7 @@ def main() -> int:
     check_alltoall_kernels(gen)
     check_moe_kernels(gen)
     check_cmatmul_kernels(gen)
+    check_wgrad_kernel(gen)
     total = torch.cuda.get_device_properties(0).total_memory
     big_ok = total >= 60 * GIB
     meas = measure_kernels(gen, big_ok)
@@ -1808,7 +2258,13 @@ def main() -> int:
              "moe": moe_paths(gen, {k: meas[k]["ms"] for k in
                                     ("a2a_mm_kernel", "mm_a2a_kernel")}),
              "tp_mlp": tp_mlp_paths(gen, {k: meas[k]["ms"] for k in
-                                          ("agmm_kernel", "mmrs_kernel")})}
+                                          ("agmm_kernel", "mmrs_kernel")}),
+             "tp_train": tp_train_paths(gen, {
+                 k: meas[k]["ms"] for k in ("agmm_kernel", "mmrs_kernel",
+                                            "wgrad_kernel")}),
+             "moe_train": moe_train_paths(gen, {
+                 k: meas[k]["ms"] for k in ("a2a_mm_kernel", "mm_a2a_kernel",
+                                            "a2a_wgrad_kernel")})}
     launches = {k: parts[PART[k]][k] for k in REPLACES}
     for k, v in launches.items():
         if v <= 0:

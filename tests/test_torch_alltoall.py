@@ -1,16 +1,22 @@
-"""Slice 4 of the port against the JAX package: ``ACCL.alltoall`` in its
-three families, and the expert-parallel MoE forward with its fused
-dispatch and combine (``accl_tpu_torch.ops.collective_alltoall``,
-``accl_tpu_torch.models.moe``), on the same numpy inputs.
+"""Slices 4 and 6 of the port against the JAX package: ``ACCL.alltoall``
+in its three families, and the expert-parallel MoE layer with its fused
+dispatch, combine and a2a-wgrad, forward and backward
+(``accl_tpu_torch.ops.collective_alltoall``, ``accl_tpu_torch.models.moe``),
+on the same numpy inputs.
 
 The JAX side runs its Pallas kernels in TPU interpret mode over
-``jax.devices()[:W]`` (W <= 8); the port runs its kernels' plain versions
-on the CPU. Tolerances: the all-to-all is transport, so bit-equal; the
-fused bodies are bit-equal on integer-valued operands (every product and
-partial sum exact in f32) and within rtol 1e-5 on random ones (the f32
-products summed in another order); the MoE layer within rtol 1e-5 / atol
-1e-6, its routing indices equal. Each JAX oracle runs once; cases loop
-inside the two test functions and every assert names its case.
+``jax.devices()[:W]`` (W <= 8), and ``jax.grad`` through its
+``custom_vjp``s and its MoE layer; the port runs its kernels' plain
+versions on the CPU and autograd. Tolerances: the all-to-all is transport,
+so bit-equal; the fused bodies and the Functions' gradients are bit-equal
+on integer-valued operands (every product and partial sum exact in f32)
+and within rtol 1e-5 on random ones (the f32 products summed in another
+order); the MoE layer within rtol 1e-5 / atol 1e-6, its routing indices
+equal, and its gradients within rtol 1e-5 and an atol of 1e-6 of each
+tensor's largest magnitude (each element sums the f32 products of a whole
+batch of tokens, whose partial sums reach that magnitude). Each JAX oracle
+runs once; cases loop inside the two test functions and every assert names
+its case.
 """
 import jax
 import jax.numpy as jnp
@@ -19,6 +25,7 @@ import torch
 
 import accl_tpu
 from accl_tpu.communicator import Communicator as JComm
+from accl_tpu.compat import shard_map
 from accl_tpu.config import ACCLConfig as JCfg
 from accl_tpu.config import Algorithm as JAlgo
 from accl_tpu.config import TransportBackend as JT
@@ -113,8 +120,9 @@ def test_moe_dispatch_combine_match_jax(monkeypatch):
     against the JAX package's Pallas kernels and its XLA pair, integer
     operands: W 4 unidirectional on the aligned and the uneven shape, W 8
     bidirectional on the uneven one; a random case against the XLA pair and
-    a bf16 wire case against the kernels; then ``build_moe_forward``
-    at the JAX package's test shape with weights carried by
+    a bf16 wire case against the kernels; the a2a-wgrad body and the
+    Functions' gradients; then ``build_moe_forward`` and its gradients at
+    the JAX package's test shape with weights carried by
     ``params_from_jax``, and the engage-reason vocabulary."""
     J, T = JAlgo.PALLAS, at.Algorithm.PALLAS
     for W, bidir, shapes in ((4, False, ((2, 8, 128, 128), (2, 5, 72, 40))),
@@ -137,6 +145,7 @@ def test_moe_dispatch_combine_match_jax(monkeypatch):
                 assert np.array_equal(got, fused), (name, case)
                 assert np.array_equal(got, ref), (name, case)
     _random_and_wire_cases()
+    _wgrad_and_functions_match()
     _moe_forward_cases()
     _engage_vocabulary(monkeypatch)
 
@@ -176,11 +185,96 @@ def _random_and_wire_cases():
     assert np.array_equal(got, want), "bf16 wire combine"
 
 
+def _jax_a2a_wgrad(W, trav, loc, lhs, bidir, wire):
+    from jax.sharding import Mesh, PartitionSpec as P
+    mesh = Mesh(np.array(jax.devices()[:W]), ("accl",))
+
+    def body(ts, ls):
+        return jca.a2a_gathered_wgrad_body(
+            ts[0], ls[0], axis="accl", overlap=True, bidirectional=bidir,
+            wire_dtype=wire, travel_lhs=lhs)[None]
+    return np.asarray(jax.jit(shard_map(
+        body, mesh=mesh, in_specs=(P("accl"), P("accl")),
+        out_specs=P("accl"), check_vma=False))(trav, loc))
+
+
+def _wgrad_and_functions_match():
+    """``a2a_gathered_wgrad_body`` against the JAX body running
+    ``_a2a_wgrad_kernel`` in interpret mode at W 4 (el 2, C 5, ct 72, cl
+    40), integer operands bit-equal: dispatch's dw unidirectional, and
+    combine's mirror bidirectional (the exchange's two channels order the
+    sum) with a bf16 wire on the traveller (past bf16's 8 bits, rounded
+    once); random f32 against the JAX unfused pair within rtol 1e-5. Then
+    the gradients of both Functions (x, h and both w, integer operands and
+    cotangents), overlap True and False, against ``jax.grad`` through the
+    JAX ``custom_vjp``s (their unfused duals): bit-equal."""
+    W, el, C, ct, cl = 4, 2, 5, 72, 40
+    for lhs, bidir, wire, (lo, hi) in ((True, False, None, (-4, 5)),
+                                       (False, True, "bf16", (-600, 600))):
+        trav = _ints(ct + hi, (W, W * el, C, ct), lo, hi)
+        loc = _ints(cl, (W, el, W * C, cl))
+        want = _jax_a2a_wgrad(W, trav, loc, lhs, bidir, wire)
+        got = tca.a2a_gathered_wgrad_body(
+            torch.from_numpy(trav), torch.from_numpy(loc), overlap=True,
+            bidirectional=bidir, wire_dtype=wire, travel_lhs=lhs).numpy()
+        assert np.array_equal(got, want), ("a2a wgrad", lhs, bidir, wire)
+    from jax.sharding import Mesh, PartitionSpec as P
+    mesh = Mesh(np.array(jax.devices()[:W]), ("accl",))
+    trav, loc = _data(31, (W, W * el, C, ct)), _data(32, (W, el, W * C, cl))
+
+    def xla_body(ts, ls):
+        return jca.a2a_gathered_wgrad_body(ts[0], ls[0], axis="accl",
+                                           overlap=False)[None]
+    want = np.asarray(jax.jit(shard_map(
+        xla_body, mesh=mesh, in_specs=(P("accl"), P("accl")),
+        out_specs=P("accl"), check_vma=False))(trav, loc))
+    got = tca.a2a_gathered_wgrad_body(torch.from_numpy(trav),
+                                      torch.from_numpy(loc), overlap=True)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5,
+                               err_msg="a2a wgrad random f32")
+    d, h = 64, 32
+    x, w_in = _ints(41, (W, W * el, C, d)), _ints(42, (W, el, d, h))
+    hx, w_out = _ints(43, (W, el, W * C, h)), _ints(44, (W, el, h, d))
+    cot_d, cot_c = _ints(45, (W, el, W * C, h)), _ints(46, (W, W * el, C, d))
+
+    def body(xs, ws, hs, wos, cd, cc):
+        def loss(x_, w_, h_, wo_):
+            y = jca.alltoall_matmul(x_, w_, "accl", None, False)
+            z = jca.matmul_alltoall(h_, wo_, "accl", None, False)
+            return jnp.sum(y * cd[0]) + jnp.sum(z * cc[0])
+        return tuple(g[None] for g in jax.grad(loss, argnums=(0, 1, 2, 3))(
+            xs[0], ws[0], hs[0], wos[0]))
+
+    spec = P("accl")
+    want = [np.asarray(g) for g in jax.jit(shard_map(
+        body, mesh=mesh, in_specs=(spec,) * 6, out_specs=(spec,) * 4,
+        check_vma=False))(x, w_in, hx, w_out, cot_d, cot_c)]
+    for overlap in (True, False):
+        ts = [torch.from_numpy(a).requires_grad_()
+              for a in (x, w_in, hx, w_out)]
+        loss = (tca.alltoall_matmul(ts[0], ts[1], overlap=overlap)
+                * torch.from_numpy(cot_d)).sum() \
+            + (tca.matmul_alltoall(ts[2], ts[3], overlap=overlap)
+               * torch.from_numpy(cot_c)).sum()
+        loss.backward()
+        for name, t, exp in zip(("dx", "dw_in", "dh", "dw_out"), ts, want):
+            assert np.array_equal(t.grad.numpy(), exp), (name, overlap)
+
+
+def _close_grads(got, want, what):
+    """rtol 1e-5 and an atol of 1e-6 of the tensor's largest magnitude."""
+    want = np.asarray(want)
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               atol=1e-6 * np.abs(want).max(), err_msg=what)
+
+
 def _moe_forward_cases():
     """build_moe_forward at W 4, n 16, d 128, h 128, E 8: top_k 1 and 2,
     capacity 8 and 2 (tokens drop), return_aux, overlap True and False in
     the port against the JAX layer (its fused path once, its baseline
-    otherwise); routing indices equal."""
+    otherwise); routing indices equal; then the gradients of the router,
+    w_in, w_out and the tokens at top_k 1 (C 8) and 2 (C 3, tokens drop)
+    against ``jax.grad``."""
     W, n, d, h, E = 4, 16, 128, 128, 8
     jcomm, tcomm = JComm(jax.devices()[:W]), at.Communicator(W, "cpu")
     gp = jmoe.init_params(jax.random.PRNGKey(0), jcomm, d, h, E)
@@ -222,21 +316,35 @@ def _moe_forward_cases():
     np.testing.assert_allclose(
         ref, jmoe.reference_moe(gp, x, E, 2), rtol=1e-12, atol=1e-12,
         err_msg="the two float64 references")
-    try:
-        tca.alltoall_matmul(torch.zeros((W, E, 2, 8), requires_grad=True),
-                            torch.zeros((W, 2, 8, 4)))
-    except at.ACCLError as e:
-        assert e.code == at.errorCode.COLLECTIVE_NOT_IMPLEMENTED
-        assert "queue 1, item 11" in str(e)
-    else:
-        raise AssertionError("a tensor that requires grad must raise")
+    # the gradients of sum(out * cot) in the router, w_in, w_out and the
+    # tokens: jax.grad through the JAX layer (its fused custom_vjps once,
+    # its baseline once) against autograd through both port datapaths
+    cot = _data(12, (W, n, d))
+    for top_k, C, j_overlap in ((1, 8, True), (2, 3, False)):
+        prog = jmoe.build_moe_forward(jcomm, E, C, top_k=top_k,
+                                      overlap=j_overlap)
+        jg, jgx = jax.grad(lambda p_, x_: jnp.sum(prog(p_, x_) * cot),
+                           argnums=(0, 1))(jparams, xj)
+        for overlap in (True, False):
+            case = (top_k, C, overlap)
+            tp_ = tmoe.MoEParams(*(t.clone().requires_grad_()
+                                   for t in tparams))
+            x_ = xt.clone().requires_grad_()
+            out = tmoe.build_moe_forward(tcomm, E, C, top_k=top_k,
+                                         overlap=overlap)(tp_, x_)
+            (out * torch.from_numpy(cot)).sum().backward()
+            for name, t, want in zip(tp_._fields, tp_, jg):
+                _close_grads(t.grad.numpy(), want, f"d{name} {case}")
+            _close_grads(x_.grad.numpy(), jgx, f"dx {case}")
 
 
 def _engage_vocabulary(monkeypatch):
     """At the JAX package's engage-resolution shapes both packages answer
-    the same reason for every register setting; at a shape past the TPU's
-    12 MiB VMEM plan the port engages (a kept divergence). A requested
-    ``off`` is never counted, a declined threshold is."""
+    the same reason for every register setting, the a2a-wgrad's too (with
+    ``moe_dw_overlap`` off as well); at a shape past the TPU's 12 MiB VMEM
+    plan the port engages (a kept divergence), the Switch-Base-8 dw shape
+    included. A requested ``off`` is never counted, a declined threshold
+    is, the dw's under ``moe_a2a_dw``."""
     monkeypatch.setattr(jcm, "_kernels_available", lambda: True)
     el, C, d, h = 2, 8, 64, 64
     block = el * C * d * 4
@@ -257,6 +365,17 @@ def _engage_vocabulary(monkeypatch):
                 dt = jnp.float32 if m is jca else torch.float32
                 got.append(m.a2a_engage_reason(el, C, d, h, 4, dt, overlap))
             assert got[0] == got[1], (enabled, threshold, wire, overlap, got)
+            for dw in (True, False):
+                got = []
+                for m in (jca, tca):
+                    m.set_dw_overlap_enabled(dw)
+                    dt = jnp.float32 if m is jca else torch.float32
+                    got.append(m.a2a_wgrad_engage_reason(el, C, d, h, 4, dt,
+                                                         overlap))
+                assert got[0] == got[1], ("dw", dw, enabled, threshold, wire,
+                                          overlap, got)
+        for m in (jca, tca):
+            m.set_dw_overlap_enabled(True)
         for m in (jca, tca):
             m.set_overlap_threshold(0)
         for cm in (jcm, tcm):
@@ -265,6 +384,17 @@ def _engage_vocabulary(monkeypatch):
                                      True) == "vmem_miss"
         assert tca.a2a_matmul_engages(8, 1024, 4096, 4096, 8, torch.float32,
                                       True)
+        # Switch-Base-8's dw (e_local 1, C 320, ct 768, cl 3072, world 8):
+        # past the TPU plan, on the card's
+        assert jca.a2a_wgrad_engage_reason(1, 320, 768, 3072, 8, jnp.float32,
+                                           True) == "vmem_miss"
+        assert tca.a2a_wgrad_engage_reason(1, 320, 768, 3072, 8,
+                                           torch.float32, True) is None
+        jplan = jca.a2a_wgrad_plan(2, 8, 32, 64, 4, jnp.float32, True)
+        tplan = tca.a2a_wgrad_plan(2, 8, 32, 64, 4, torch.float32, True)
+        assert tplan.keys() == jplan.keys(), (tplan, jplan)
+        assert (tplan["nchan"], tca.a2a_wgrad_plan(
+            2, 8, 32, 64, 2, torch.float32, True)["nchan"]) == (2, 1)
         x = torch.ones((4, 8, C, d))
         w = torch.ones((4, el, d, h))
         tca.set_overlap_threshold(block + 1)
@@ -274,9 +404,20 @@ def _engage_vocabulary(monkeypatch):
         counted = metrics.delta(before)["counters"]
         assert counted == {'accl_cmatmul_fallback_total{op="alltoall_matmul"'
                            ',reason="threshold"}': 1.0}, counted
+        loc = torch.ones((4, el, 4 * C, h))
+        before = metrics.snapshot()
+        tca.a2a_gathered_wgrad_body(x, loc, overlap=False)
+        tca.set_dw_overlap_enabled(False)
+        tca.a2a_gathered_wgrad_body(x, loc)
+        tca.set_dw_overlap_enabled(True)
+        tca.a2a_gathered_wgrad_body(x, loc)
+        counted = metrics.delta(before)["counters"]
+        assert counted == {'accl_cmatmul_fallback_total{op="moe_a2a_dw"'
+                           ',reason="threshold"}': 1.0}, counted
     finally:
         for m, (enabled, threshold) in zip((jca, tca), saved[:2]):
             m.set_overlap_enabled(enabled)
             m.set_overlap_threshold(threshold)
+            m.set_dw_overlap_enabled(True)
         jcm.set_wire_dtype(saved[2])
         tcm.set_wire_dtype(saved[3])

@@ -1,19 +1,21 @@
-"""Slice 5 of the port against the JAX package: the tensor-parallel
+"""Slices 5 and 6 of the port against the JAX package: the tensor-parallel
 collective matmuls (``accl_tpu_torch.ops.collective_matmul``: plans, engage
-policy, the all-gather x matmul and matmul x reduce-scatter bodies over the
-``agmm`` and ``mmrs`` kernels' plain versions) and the TP MLP forward
-(``accl_tpu_torch.models.mlp``), on the same numpy inputs.
+policy, the all-gather x matmul, matmul x reduce-scatter and gathered-wgrad
+bodies over the ``agmm``, ``mmrs`` and ``wgrad`` kernels' plain versions,
+and the autograd Functions around them) and the TP MLP forward and train
+step (``accl_tpu_torch.models.mlp``), on the same numpy inputs.
 
-The JAX side runs its unfused XLA pair, and four times its Pallas kernels
-in TPU interpret mode (W = 4, bidirectional, small k; each oracle once
-through a module-scoped cache). Tolerances: integer-valued operands are
-bit-equal (every product and partial sum exact in f32, and the bf16 wire's
-roundings deterministic); random f32 within the f32 summation bound, 2 K
-2^-24 sum|a b| for K products per output (the same products summed in
-another order: at W 8, 1024 products per mmrs output, elements near zero
-differ by up to 3.8e-6, past an atol of 1e-6); the MLP forward within rtol
-1e-5 /
-atol 1e-6, with the same engage decision in both packages. Cases loop
+The JAX side runs its unfused XLA pair, and seven times its Pallas kernels
+in TPU interpret mode (W = 4, small shapes; each oracle once through a
+module-scoped cache), plus its fused MLP train step at (dp, tp) (1, 2) and
+(2, 4). Tolerances: integer-valued operands are bit-equal (every product
+and partial sum exact in f32, and the bf16 wire's roundings deterministic);
+random f32 within the f32 summation bound, 2 K 2^-24 sum|a b| for K
+products per output (the same products summed in another order: at W 8,
+1024 products per mmrs output, elements near zero differ by up to 3.8e-6,
+past an atol of 1e-6), or rtol 1e-5 where the wgrad's few products make
+that the looser bound; the MLP forward and train step within rtol 1e-5 /
+atol 1e-6, with the same engage decisions in both packages. Cases loop
 inside the two test functions and every assert names its case.
 """
 import jax
@@ -113,15 +115,18 @@ def _plan_modes(op, m, k, n, P, bidir):
 
 
 def test_cmatmul_match_jax(monkeypatch, oracle):
-    """Plans, engage reasons and fallback labels equal the JAX package's;
-    the bodies hold against its XLA pair at worlds 2, 4 and 8 in every plan
-    mode and channel setting, and against its Pallas kernels in interpret
-    mode; bad shapes raise the same ValueError; the device API entry
-    points and the backward's refusal."""
+    """Plans, engage reasons and fallback labels equal the JAX package's
+    (the forward's and the gathered wgrad's); the bodies hold against its
+    XLA pair at worlds 2, 4 and 8 in every plan mode and channel setting,
+    and against its Pallas kernels in interpret mode, the wgrad's too; bad
+    shapes raise the same ValueError; the device API entry points and their
+    gradients against ``jax.grad`` through the JAX ``custom_vjp``s."""
     _plans_match(monkeypatch)
     _engage_and_fallbacks_match(monkeypatch)
+    _wgrad_policy_matches(monkeypatch)
     _bodies_match_xla(monkeypatch)
     _bodies_match_pallas(monkeypatch, oracle)
+    _wgrad_bodies_match_pallas(monkeypatch, oracle)
     _bad_shapes_raise()
     _entry_points()
 
@@ -358,23 +363,161 @@ def _bodies_match_pallas(monkeypatch, oracle):
     _budget(monkeypatch, 12 << 20)
 
 
-def _bad_shapes_raise():
-    """A contraction mismatch (both bodies) and rows not divisible by the
-    world (mmrs) raise the JAX package's ValueError."""
+def _wgrad_policy_matches(monkeypatch):
+    """``wgrad_plan`` over budgets, nblock, shapes, worlds, dtypes and
+    channel settings; ``wgrad_engage_reason`` over the register settings,
+    overlap modes, wires and both orientations; the Megatron-LM 8.3B pin
+    (the stream arm, ctb 768 in 4 launches); then the ``{op}_dw`` fallback
+    labels the port's body counts against the JAX body's."""
+    shapes = [(256, 3072, 1536), (12, 72, 40), (16, 256, 64), (2048, 512, 512),
+              (8, 128, 32768), (1, 1, 1)]
+    for budget in (12 << 20, 150 << 10):
+        _budget(monkeypatch, budget)
+        for nblock in (True, False):
+            monkeypatch.setattr(jcm, "_NBLOCK_DEFAULT", nblock)
+            monkeypatch.setattr(tcm, "_NBLOCK_DEFAULT", nblock)
+            for ms, ct, cl in shapes:
+                for P in (1, 2, 4, 8):
+                    for tdt, ldt in (("f32", "f32"), ("bf16", "f32"),
+                                     ("bf16", "bf16")):
+                        for bidir in (False, True):
+                            case = (budget, nblock, ms, ct, cl, P, tdt, ldt,
+                                    bidir)
+                            assert tcm.wgrad_plan(
+                                ms, ct, cl, P, _DT[tdt][1], _DT[ldt][1],
+                                bidir) == jcm.wgrad_plan(
+                                ms, ct, cl, P, _DT[tdt][0], _DT[ldt][0],
+                                bidir), case
+    _budget(monkeypatch, 12 << 20)
+    monkeypatch.setattr(jcm, "_NBLOCK_DEFAULT", True)
+    monkeypatch.setattr(tcm, "_NBLOCK_DEFAULT", True)
+    plan = tcm.wgrad_plan(256, 3072, 1536, 8, torch.float32, torch.float32,
+                          True)
+    assert (plan["ctb"], plan["nctb"], plan["nchan"]) == (768, 4, 2), plan
+    for reg in ((True, 0, 0, {}, {}), (False, 0, 0, {}, {}),
+                (True, 1 << 62, 1 << 62, {}, {}),
+                (True, 4096, 8192, {"wide": 1 << 62}, {"tall": 0})):
+        _set_registers(monkeypatch, *reg)
+        for ms, ct, cl in shapes[:4]:
+            for P in (1, 2, 4, 8):
+                for overlap in (None, True, False):
+                    for wire in (None, "bf16", "off"):
+                        for lhs in (True, False):
+                            case = (reg[:3], ms, ct, cl, P, overlap, wire,
+                                    lhs)
+                            assert tcm.wgrad_engage_reason(
+                                ms, ct, cl, P, torch.float32, overlap,
+                                wire_dtype=wire, travel_lhs=lhs) == \
+                                jcm.wgrad_engage_reason(
+                                    ms, ct, cl, P, jnp.float32, overlap,
+                                    wire_dtype=wire, travel_lhs=lhs), case
     from jax.sharding import Mesh, PartitionSpec as P
     mesh = Mesh(np.array(jax.devices()[:4]), ("accl",))
-    for body_name, (m, k, k2, n) in (
-            ("all_gather_matmul_body", (16, 64, 32, 64)),
-            ("matmul_reduce_scatter_body", (16, 64, 32, 64)),
-            ("matmul_reduce_scatter_body", (10, 64, 64, 64))):
+
+    def jax_trace(overlap, lhs, ms, ct, cl, op):
+        def body(ts, ls):
+            return jcm.gathered_wgrad_body(ts, ls, axis="accl",
+                                           overlap=overlap, travel_lhs=lhs,
+                                           op=op)
+        jax.make_jaxpr(shard_map(
+            body, mesh=mesh, in_specs=(P("accl"), P("accl")),
+            out_specs=P("accl"), check_vma=False))(
+            jnp.zeros((4 * ms, ct), jnp.float32),
+            jnp.zeros((16 * ms, cl), jnp.float32))
+
+    for setup, overlap, (ms, ct, cl), budget in (
+            ((True, 1 << 62, 1 << 62, {}, {}), None, (16, 64, 64), 12 << 20),
+            ((True, 0, 0, {}, {}), True, (16, 256, 64), 20 << 10),
+            ((True, 0, 0, {}, {}), False, (16, 64, 64), 12 << 20),
+            ((False, 0, 0, {}, {}), None, (16, 64, 64), 12 << 20)):
+        _set_registers(monkeypatch, *setup)
+        _budget(monkeypatch, budget)
+        for lhs, op in ((True, "allgather_matmul"),
+                        (False, "matmul_reduce_scatter")):
+            case = (setup[:3], overlap, ms, ct, cl, op)
+            jb, tb = jmetrics.snapshot(), tmetrics.snapshot()
+            jax_trace(overlap, lhs, ms, ct, cl, op)
+            tcm.gathered_wgrad_body(torch.zeros((4, ms, ct)),
+                                    torch.zeros((4, 4 * ms, cl)),
+                                    overlap=overlap, travel_lhs=lhs, op=op)
+            got = _fallbacks(tmetrics, tb)
+            assert got == _fallbacks(jmetrics, jb), case
+            assert all("_dw" in k for k in got), case
+    _set_registers(monkeypatch, True, 0, 0, {}, {})
+    _budget(monkeypatch, 12 << 20)
+
+
+def _jax_wgrad(W, pairs, lhs, wire):
+    """The JAX body (bidirectional, overlap on) on each (trav, loc) pair, in
+    one program."""
+    from jax.sharding import Mesh, PartitionSpec as P
+    mesh = Mesh(np.array(jax.devices()[:W]), ("accl",))
+
+    def body(*ops):
+        return tuple(jcm.gathered_wgrad_body(
+            ts[0], ls[0], axis="accl", overlap=True, wire_dtype=wire,
+            travel_lhs=lhs)[None] for ts, ls in zip(ops[::2], ops[1::2]))
+    return [np.asarray(o) for o in jax.jit(shard_map(
+        body, mesh=mesh, in_specs=(P("accl"),) * (2 * len(pairs)),
+        out_specs=(P("accl"),) * len(pairs), check_vma=False))(
+        *(a for pair in pairs for a in pair))]
+
+
+def _wgrad_bodies_match_pallas(monkeypatch, oracle):
+    """``gathered_wgrad_body`` against the JAX body running
+    ``_wgrad_kernel`` in interpret mode at W 4, bidirectional: the resident
+    plan on the ragged shard (ms 12: rows 8-11 are channel 1 of the padded
+    16, so the sum runs in the ring's two orders), integer operands
+    bit-equal and random f32 within rtol 1e-5 / atol 1e-5 (48 products per
+    output); the mirror with a bf16 wire (shards past bf16's 8 bits,
+    rounded once) on the streaming arm (a pinched budget: ct 256 in two
+    128-column blocks, two launches), bit-equal."""
+    W = 4
+    for name, budget, (ms, ct, cl), lhs, wire, (lo, hi) in (
+            ("wgrad resident", 12 << 20, (12, 72, 40), True, None, (-4, 5)),
+            ("wgrad stream bf16 mirror", 150 << 10, (12, 256, 40), False,
+             "bf16", (-600, 600))):
+        _budget(monkeypatch, budget)
+        pairs = [(_ints(ct + ms, (W, ms, ct), lo, hi),
+                  _ints(cl + ms, (W, W * ms, cl)))]
+        if lhs:
+            pairs.append((_data(21, (W, ms, ct)), _data(22, (W, W * ms, cl))))
+        plan = jcm.wgrad_plan(ms, ct, cl, W,
+                              jnp.bfloat16 if wire else jnp.float32,
+                              jnp.float32, True)
+        assert plan["nchan"] == 2 and plan.get("nctb", 1) == \
+            (2 if "stream" in name else 1), (name, plan)
+        want = oracle(name, lambda: _jax_wgrad(W, pairs, lhs, wire))
+        got = [tcm.gathered_wgrad_body(
+            torch.from_numpy(t), torch.from_numpy(lc), overlap=True,
+            wire_dtype=wire, travel_lhs=lhs).numpy() for t, lc in pairs]
+        assert np.array_equal(got[0], want[0]), name
+        if lhs:
+            np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-5,
+                                       err_msg="wgrad random f32")
+    _budget(monkeypatch, 12 << 20)
+
+
+def _bad_shapes_raise():
+    """A contraction mismatch (both bodies), rows not divisible by the
+    world (mmrs) and a wgrad row mismatch raise the JAX package's
+    ValueError."""
+    from jax.sharding import Mesh, PartitionSpec as P
+    mesh = Mesh(np.array(jax.devices()[:4]), ("accl",))
+    for body_name, (m, k, k2, n), wspec in (
+            ("all_gather_matmul_body", (16, 64, 32, 64), None),
+            ("matmul_reduce_scatter_body", (16, 64, 32, 64), None),
+            ("matmul_reduce_scatter_body", (10, 64, 64, 64), None),
+            ("gathered_wgrad_body", (16, 64, 40, 32), "accl")):
         def body(xs, ws):
             return getattr(jcm, body_name)(xs, ws, axis="accl", overlap=True)
+        jw = (4 * k2, n) if wspec else (k2, n)
         with pytest.raises(ValueError) as jerr:
             jax.make_jaxpr(shard_map(
-                body, mesh=mesh, in_specs=(P("accl"), P(None)),
+                body, mesh=mesh, in_specs=(P("accl"), P(wspec)),
                 out_specs=P("accl"), check_vma=False))(
                 jnp.zeros((4 * m, k), jnp.float32),
-                jnp.zeros((k2, n), jnp.float32))
+                jnp.zeros(jw, jnp.float32))
         with pytest.raises(ValueError) as terr:
             getattr(tcm, body_name)(torch.zeros((4, m, k)),
                                     torch.zeros((4, k2, n)), overlap=True)
@@ -383,8 +526,12 @@ def _bad_shapes_raise():
 
 def _entry_points():
     """``device_api`` calls route through the bodies; ``fsdp_matmul``
-    against the JAX builder's XLA family; an input that requires grad
-    raises COLLECTIVE_NOT_IMPLEMENTED naming the ROADMAP item."""
+    against the JAX ``build_fsdp_matmul``'s XLA family; then the gradients
+    of the two entry points (dx and dw, integer operands and cotangents:
+    bit-equal)
+    with overlap True and False against ``jax.grad`` through the JAX
+    ``custom_vjp``s (their unfused duals), and a bf16 wire passed through
+    to the backward's bodies."""
     W, m, k, n = 4, 8, 64, 96
     x, w = _ints(1, (W, m, k)), _ints(2, (W, k, n))
     xr = _ints(3, (W, W * m, k))
@@ -404,11 +551,49 @@ def _entry_points():
     assert np.array_equal(
         tdapi.fsdp_matmul(tx, torch.from_numpy(wt), overlap=True).numpy(),
         want)
-    for fn in (tdapi.all_gather_matmul, tdapi.matmul_reduce_scatter):
-        with pytest.raises(at.ACCLError) as ei:
-            fn(txr.clone().requires_grad_(), tw)
-        assert ei.value.code == at.errorCode.COLLECTIVE_NOT_IMPLEMENTED
-        assert "ROADMAP.md" in str(ei.value)
+    cot_ag, cot_rs = _ints(5, (W, W * m, n)), _ints(6, (W, m, n))
+    from jax.sharding import Mesh, PartitionSpec as P
+    mesh = Mesh(np.array(jax.devices()[:W]), ("accl",))
+
+    def body(xs, xrs, ws, ca, cr):
+        def loss(x_, xr_, w_):
+            y = jcm.all_gather_matmul(x_, w_, "accl", None, False)
+            z = jcm.matmul_reduce_scatter(xr_, w_, "accl", None, False)
+            return jnp.sum(y * ca[0]) + jnp.sum(z * cr[0])
+        return tuple(g[None] for g in jax.grad(loss, argnums=(0, 1, 2))(
+            xs[0], xrs[0], ws[0]))
+
+    spec = P("accl")
+    want = [np.asarray(g) for g in jax.jit(shard_map(
+        body, mesh=mesh, in_specs=(spec,) * 5, out_specs=(spec,) * 3,
+        check_vma=False))(x, xr, w, cot_ag, cot_rs)]
+    for overlap in (True, False):
+        a, b, c = (torch.from_numpy(t).requires_grad_() for t in (x, xr, w))
+        loss = (tdapi.all_gather_matmul(a, c, overlap=overlap)
+                * torch.from_numpy(cot_ag)).sum() \
+            + (tdapi.matmul_reduce_scatter(b, c, overlap=overlap)
+               * torch.from_numpy(cot_rs)).sum()
+        loss.backward()
+        for name, got, exp in (("dx agmm", a.grad, want[0]),
+                               ("dx mmrs", b.grad, want[1]),
+                               ("dw", c.grad, want[2])):
+            assert np.array_equal(got.numpy(), exp), (name, overlap)
+    # the wire reaches the backward: dw of the all-gather x matmul is the
+    # gathered wgrad of x rounded to bf16 (integers past bf16's 8 bits)
+    xb = _ints(7, (W, m, k), -600, 600)
+    a, c = torch.from_numpy(xb).requires_grad_(), tw.clone().requires_grad_()
+    tcm.all_gather_matmul(a, c, True, True, "bf16").backward(
+        torch.from_numpy(cot_ag))
+    for got, exp in ((c.grad, tcm.gathered_wgrad_body(
+            torch.from_numpy(xb), torch.from_numpy(cot_ag), overlap=True,
+            wire_dtype="bf16")),
+                     (a.grad, tcm.matmul_reduce_scatter_body(
+            torch.from_numpy(cot_ag), tw.transpose(1, 2), overlap=True,
+            wire_dtype="bf16"))):
+        assert torch.equal(got, exp), "bf16 wire in the backward"
+    assert not torch.equal(c.grad, tcm.gathered_wgrad_body(
+        torch.from_numpy(xb), torch.from_numpy(cot_ag), overlap=True,
+        wire_dtype="off")), "the bf16 wire rounds dw's traveller"
 
 
 def test_mlp_forward_matches_jax():
@@ -416,7 +601,7 @@ def test_mlp_forward_matches_jax():
     against the JAX ``make_forward`` at d 64, h 256, 16 rows, (dp, tp) in
     {(1, 2), (2, 4)}: the same engage decision in both packages, outputs
     within rtol 1e-5 / atol 1e-6; ``apply`` against the dense JAX
-    ``apply``; ``make_train_step`` refuses."""
+    ``apply``; then ``make_train_step`` against the JAX train step."""
     d, h, N = 64, 256, 16
     p = jmlp.init_params(jax.random.PRNGKey(0), d, h)
     p = p._replace(b1=jnp.asarray(_data(1, (h,))),
@@ -448,6 +633,47 @@ def test_mlp_forward_matches_jax():
                 params, tx).numpy()
             np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6,
                                        err_msg=str(case))
-    with pytest.raises(at.ACCLError) as ei:
-        tmlp.make_train_step()
-    assert ei.value.code == at.errorCode.COLLECTIVE_NOT_IMPLEMENTED
+            _train_step_matches_jax(p, jp, params, mesh, comm, dp, tp, x,
+                                    overlap)
+
+
+def _train_step_matches_jax(p, jp, params, mesh, comm, dp, tp, x, overlap):
+    """One SGD step (lr 1e-2, random targets) against the JAX
+    ``make_train_step``: both backward wgrads engage alike in both
+    packages; the loss and the new parameters within rtol 1e-5 / atol
+    1e-6, every dp copy equal. The JAX step scales the gradients of w1, b1
+    and w2 by tp (every tp rank's loss is summed into the backward): the
+    same new parameters with those updates divided by tp must fail the
+    tolerance, so the check sees a missing factor."""
+    d, h = p.w1.shape
+    rows = x.shape[0] // dp
+    case = (dp, tp, overlap)
+    for ms, ct, cl, lhs in ((rows // tp, d, h // tp, True),
+                            (rows // tp, d, h // tp, False)):
+        want = jcm.wgrad_engage_reason(ms, ct, cl, tp, jnp.float32, overlap,
+                                       travel_lhs=lhs)
+        got = tcm.wgrad_engage_reason(ms, ct, cl, tp, torch.float32, overlap,
+                                      travel_lhs=lhs)
+        assert got == want == (None if overlap else "off"), ("wgrad", case)
+    targets = _data(4, x.shape)
+    jnew, jloss = jmlp.make_train_step(mesh, overlap=overlap)(
+        jp, jnp.asarray(x), jnp.asarray(targets))
+    new, loss = tmlp.make_train_step(comm, dp, tp, overlap=overlap)(
+        params, torch.from_numpy(x), torch.from_numpy(targets))
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5,
+                               err_msg=f"loss {case}")
+    for name, t in zip(new._fields, new):
+        t = t.view(dp, tp, *t.shape[1:])
+        assert all(torch.equal(t[i], t[0]) for i in range(dp)), (name, case)
+    dense = tmlp.MLPParams(
+        w1=new.w1[:tp].permute(1, 0, 2).reshape(d, h),
+        b1=new.b1[:tp].reshape(h), w2=new.w2[:tp].reshape(h, d),
+        b2=new.b2[0])
+    for name, got, want, old in zip(dense._fields, dense, jnew, p):
+        got, want, old = got.numpy(), np.asarray(want), np.asarray(old)
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6,
+                                   err_msg=f"{name} {case}")
+        if name != "b2":
+            unscaled = old - (old - got) / tp
+            assert not np.allclose(unscaled, want, rtol=1e-5, atol=1e-6), \
+                (f"{name}: a missing factor tp passes", case)

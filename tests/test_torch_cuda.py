@@ -1,6 +1,7 @@
 """The port's CUDA kernels (the ring kernels, the rooted relays, the
-all-to-all, the plugin lanes, the fused MoE dispatch and combine and the
-collective matmuls) against their plain PyTorch versions on the card:
+all-to-all, the plugin lanes, the fused MoE dispatch, combine and a2a-wgrad
+and the collective matmuls with their gathered wgrad) against their plain
+PyTorch versions on the card:
 bit-equal (``torch.equal``, or the raw bits where NaN can occur; the matmul
 kernels on integer-valued operands). This test needs an NVIDIA GPU with
 ``nvcc`` (the kernels build at first use); where no card is visible it
@@ -290,10 +291,11 @@ def _alltoall_kernels(gen):
 
 
 def _moe_kernels(gen):
-    """a2a_mm_kernel and mm_a2a_kernel against their plain versions on
-    integer-valued operands (exact): worlds 2, 3 and 8, the aligned and an
-    uneven shape, f32 and bf16 token payloads, the combine rounded to f32,
-    bf16 and f16."""
+    """a2a_mm_kernel, mm_a2a_kernel and a2a_wgrad_kernel against their plain
+    versions on integer-valued operands (exact): worlds 2, 3 and 8, the
+    aligned and an uneven shape, f32 and bf16 token payloads, the combine
+    rounded to f32, bf16 and f16, the wgrad in both orientations with one
+    and (P >= 4) two channels and an f32 or bf16 traveller."""
     from accl_tpu_torch.ops import collective_alltoall as ca
 
     def ints(shape, lo=-4, hi=5):
@@ -312,21 +314,33 @@ def _moe_kernels(gen):
             for odt in (torch.float32, torch.bfloat16, torch.float16):
                 assert torch.equal(ca.mm_a2a(hx, wo, odt),
                                    ca.plain_mm_a2a(hx, wo, odt)), (case, odt)
+            loc = ints((P, el, P * C, h))
+            for nchan in ((1, 2) if P >= 4 else (1,)):
+                for lhs in (True, False):
+                    for tdt in (torch.float32, torch.bfloat16):
+                        xx = x.to(tdt)
+                        assert torch.equal(
+                            ca.a2a_wgrad(xx, loc, nchan, lhs),
+                            ca.plain_a2a_wgrad(xx, loc, nchan, lhs)), \
+                            ("a2a_wgrad", case, nchan, lhs, tdt)
 
 
 def _cmatmul_kernels(gen):
-    """agmm_kernel and mmrs_kernel against their plain versions on
-    integer-valued operands (exact), through the bodies, whose plans pick
-    the launches: worlds 2, 3 and 8, bidirectional off and on (P >= 4), an
-    aligned and a ragged per-rank shape, the resident plan and, with the
-    plan budget pinched, the k-blocked and the accumulator-blocked ones, f32
-    and a bf16 wire (the travelling sum past 256, so it rounds)."""
+    """agmm_kernel, mmrs_kernel and wgrad_kernel against their plain
+    versions on integer-valued operands (exact), through the bodies, whose
+    plans pick the launches: worlds 2, 3 and 8, bidirectional off and on (P
+    >= 4), an aligned and a ragged per-rank shape, the resident plan and,
+    with the plan budget pinched, the k-blocked and the accumulator-blocked
+    ones (the wgrad's streaming column blocks), f32 and a bf16 wire (the
+    travelling sum past 256, so it rounds), the wgrad in both
+    orientations."""
     from accl_tpu_torch.ops import collective_matmul as cm
 
     def ints(shape, lo=-9, hi=10):
         return torch.randint(lo, hi, shape, generator=gen, device="cuda") \
             .float()
 
+    _wgrad_kernel_cases(cm, ints)
     kernels = (cm.agmm, cm.mmrs)
     saved = cm._VMEM_BUDGET
     try:
@@ -367,34 +381,80 @@ def _cmatmul_kernels(gen):
         cm._VMEM_BUDGET = saved
 
 
+def _wgrad_kernel_cases(cm, ints):
+    """wgrad_kernel through ``gathered_wgrad_body`` against the same body
+    on its plain version: worlds 2, 3 and 8, one and two channels, an
+    aligned and a ragged shard (ms 12: channel 1 from row 8), the resident
+    plan and the streaming one (ct in 128-column blocks), both
+    orientations, f32 and a bf16 wire (traveller past bf16's 8 bits)."""
+    saved = cm._VMEM_BUDGET
+    try:
+        for P in (2, 3, 8):
+            for ms, ct, cl in ((32, 256, 128), (12, 256, 40)):
+                for budget in (12 << 20, 150 << 10):
+                    cm._VMEM_BUDGET = budget
+                    for bidir in ((False, True) if P >= 4 else (False,)):
+                        for lhs in (True, False):
+                            for wire in ("off", "bf16"):
+                                case = (P, ms, ct, cl, budget, bidir, lhs,
+                                        wire)
+                                lo = -600 if wire == "bf16" else -9
+                                trav = ints((P, ms, ct), lo, -lo)
+                                loc = ints((P, P * ms, cl))
+
+                                def run():
+                                    return cm.gathered_wgrad_body(
+                                        trav, loc, overlap=True,
+                                        bidirectional=bidir,
+                                        wire_dtype=wire, travel_lhs=lhs)
+                                got = run()
+                                kernel, cm.wgrad = cm.wgrad, cm.plain_wgrad
+                                try:
+                                    want = run()
+                                finally:
+                                    cm.wgrad = kernel
+                                assert torch.equal(got, want), \
+                                    ("wgrad", case)
+    finally:
+        cm._VMEM_BUDGET = saved
+
+
 def _mlp_on_card():
-    """The TP MLP forward (fused and baseline) on the card against the same
-    call on the CPU, within rtol 1e-5 / atol 1e-6 (the f32 matmuls sum in
-    another order)."""
+    """The TP MLP forward and train step (fused and baseline) on the card
+    against the same calls on the CPU, within rtol 1e-5 / atol 1e-6 (the
+    f32 matmuls sum in another order)."""
     import accl_tpu_torch as at
     from accl_tpu_torch.models import mlp
     g = torch.Generator(device="cpu")
     g.manual_seed(5)
     dense = mlp.init_params(g, 128, 512)
     x = torch.randn((64, 128), generator=g)
+    targets = torch.randn((64, 128), generator=g)
     for dp, tp in ((1, 8), (2, 4)):
         for overlap in (True, False):
-            got = {}
+            got, step = {}, {}
             for dev in ("cuda", "cpu"):
                 c = at.Communicator(dp * tp, dev)
                 p = mlp.shard_params(dense, c, dp, tp)
                 got[dev] = mlp.make_forward(c, dp, tp, overlap=overlap)(
                     p, x.to(dev)).cpu()
-            torch.testing.assert_close(
-                got["cuda"], got["cpu"], rtol=1e-5, atol=1e-6,
-                msg=f"mlp dp={dp} tp={tp} overlap={overlap}")
+                new, loss = mlp.make_train_step(c, dp, tp, overlap=overlap)(
+                    p, x.to(dev), targets.to(dev))
+                step[dev] = [t.cpu() for t in (*new, loss)]
+            case = f"mlp dp={dp} tp={tp} overlap={overlap}"
+            torch.testing.assert_close(got["cuda"], got["cpu"], rtol=1e-5,
+                                       atol=1e-6, msg=case)
+            for a, b in zip(step["cuda"], step["cpu"]):
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6,
+                                           msg=f"train step {case}")
 
 
 def _alltoall_and_moe_on_card(gen):
-    """ACCL.alltoall in its three families and the MoE forward (fused and
-    baseline) on the card against the same calls on the CPU: the
-    all-to-all bit-equal, the MoE layer within rtol 1e-5 / atol 1e-6 (the
-    f32 matmuls sum in another order)."""
+    """ACCL.alltoall in its three families and the MoE forward and
+    backward (fused and baseline) on the card against the same calls on the
+    CPU: the all-to-all bit-equal, the MoE layer within rtol 1e-5 / atol
+    1e-6 and its gradients within rtol 1e-5 and 1e-6 of each tensor's
+    largest magnitude (the f32 matmuls sum in another order)."""
     import accl_tpu_torch as at
     from accl_tpu_torch.models import moe
     f32 = at.dataType.float32
@@ -417,16 +477,26 @@ def _alltoall_and_moe_on_card(gen):
     comm = at.Communicator(4, "cpu")
     params = moe.init_params(g, comm, 128, 256, 8)
     tokens = torch.randn((4, 64, 128), generator=g)
+    cot = torch.randn((4, 64, 128), generator=g)
     for overlap in (True, False):
-        got = {}
+        got, grads = {}, {}
         for dev in ("cuda", "cpu"):
             c = at.Communicator(4, dev)
-            p = moe.shard_params(params, c)
-            got[dev] = moe.build_moe_forward(c, 8, 24, top_k=2,
-                                             overlap=overlap)(
-                p, tokens.to(dev)).cpu()
+            p = moe.MoEParams(*(t.detach().clone().requires_grad_()
+                                for t in moe.shard_params(params, c)))
+            xt = tokens.to(dev).detach().requires_grad_()
+            out = moe.build_moe_forward(c, 8, 24, top_k=2,
+                                        overlap=overlap)(p, xt)
+            (out * cot.to(dev)).sum().backward()
+            got[dev] = out.detach().cpu()
+            grads[dev] = [t.grad.cpu() for t in (*p, xt)]
         torch.testing.assert_close(got["cuda"], got["cpu"], rtol=1e-5,
                                    atol=1e-6, msg=f"moe overlap={overlap}")
+        for name, a, b in zip(("router", "w_in", "w_out", "x"),
+                              grads["cuda"], grads["cpu"]):
+            torch.testing.assert_close(
+                a, b, rtol=1e-5, atol=1e-6 * b.abs().max().item(),
+                msg=f"moe d{name} overlap={overlap}")
 
 
 def _rooted_on_card(gen):
