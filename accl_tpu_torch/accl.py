@@ -36,6 +36,7 @@ from .constants import ACCLError, dataType, errorCode, operation, \
 from .obs import metrics as _metrics
 from .ops import collective_alltoall as _a2a_ops
 from .ops import collective_matmul as _cm_ops
+from .ops import flash as _flash_ops
 from .parallel import algorithms, hierarchical, primitives
 from .parallel.compiler import ProgramCache
 from .request import Request
@@ -76,9 +77,10 @@ class ACCL:
     @config.setter
     def config(self, cfg: ACCLConfig) -> None:
         """Write-through: the registers that steer module-level policy are
-        applied on every assignment (a bad ``dcn_wire_dtype`` or
-        ``cmatmul_wire_dtype`` raises ValueError naming the register and
-        leaves the config as it was)."""
+        applied on every assignment (a bad ``flash_bwd``,
+        ``dcn_wire_dtype`` or ``cmatmul_wire_dtype`` raises ValueError
+        naming the register and leaves the config as it was)."""
+        _flash_ops.set_flash_bwd_mode(cfg.flash_bwd)
         hierarchical.set_dcn_wire_dtype(cfg.dcn_wire_dtype)
         _cm_ops.set_wire_dtype(cfg.cmatmul_wire_dtype)
         _cm_ops.set_overlap_enabled(cfg.cmatmul_overlap)

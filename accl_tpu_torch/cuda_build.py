@@ -25,7 +25,8 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_cuda_build"
 #: sources, by library name
 SOURCES = {"ring": SRC_DIR / "ring.cu", "plugins": SRC_DIR / "plugins.cu",
-           "a2a": SRC_DIR / "a2a.cu", "cmatmul": SRC_DIR / "cmatmul.cu"}
+           "a2a": SRC_DIR / "a2a.cu", "cmatmul": SRC_DIR / "cmatmul.cu",
+           "flash": SRC_DIR / "flash.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
@@ -159,8 +160,31 @@ def _declare_cmatmul(lib: ctypes.CDLL) -> None:
     lib.accl_cmatmul_wgrad.restype = c_int
 
 
+def _declare_flash(lib: ctypes.CDLL) -> None:
+    c_int, c_p, c_f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+    lib.accl_flash_fwd.argtypes = [c_int, c_int, c_p, c_p, c_p, c_p, c_p,
+                                   c_int, c_int, c_int, c_int, c_int, c_f,
+                                   c_p]
+    lib.accl_flash_fwd.restype = c_int
+    lib.accl_flash_bwd_fused.argtypes = [c_int, c_int, *[c_p] * 9, c_int,
+                                         c_int, c_int, c_int, c_int, c_f,
+                                         c_f, c_int, c_int, c_p]
+    lib.accl_flash_bwd_fused.restype = c_int
+    lib.accl_flash_bwd_kv.argtypes = [c_int, c_int, *[c_p] * 8, c_int,
+                                      c_int, c_int, c_int, c_int, c_f, c_f,
+                                      c_p]
+    lib.accl_flash_bwd_kv.restype = c_int
+    lib.accl_flash_bwd_q.argtypes = [c_int, c_int, *[c_p] * 7, c_int, c_int,
+                                     c_int, c_int, c_int, c_f, c_f, c_p]
+    lib.accl_flash_bwd_q.restype = c_int
+    lib.accl_flash_dq_reduce.argtypes = [c_p, c_p, c_int, c_int, c_int,
+                                         c_int, c_int, c_int, c_p]
+    lib.accl_flash_dq_reduce.restype = c_int
+
+
 _DECLARE = {"ring": _declare_ring, "plugins": _declare_plugins,
-            "a2a": _declare_a2a, "cmatmul": _declare_cmatmul}
+            "a2a": _declare_a2a, "cmatmul": _declare_cmatmul,
+            "flash": _declare_flash}
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -5,8 +5,9 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, in order;
 any failure exits non-zero and nothing is caught and skipped:
 
 1. build the kernels from ``accl_tpu_torch/csrc`` (``ring.cu``,
-   ``plugins.cu``, ``a2a.cu`` and ``cmatmul.cu``, one ``nvcc`` each, in
-   parallel) and print the build time, the card and its power limit;
+   ``plugins.cu``, ``a2a.cu``, ``cmatmul.cu`` and ``flash.cu``, one
+   ``nvcc`` each, in parallel) and print the build time, the card and its
+   power limit;
 2. hold every kernel against its plain PyTorch version on the card, bit
    for bit (``torch.equal``, or the raw bits where NaN can occur): the four
    ring kernels (P in {2, 8}, a ragged length, SUM and MAX, f32 / i32 /
@@ -29,9 +30,16 @@ any failure exits non-zero and nothing is caught and skipped:
    bf16 wire: integer operands bit-equal, random ones within the f32
    summation bound) with their gathered wgrad (the same worlds and
    channels, an aligned and a ragged shard, resident and streaming plans,
-   both orientations, f32 and a bf16 wire), then time each kernel, its
-   plain version and a one-call PyTorch yardstick at the shapes of the
-   main path;
+   both orientations, f32 and a bf16 wire), and the four flash attention
+   kernels (f32 and bf16, causal and not, d 64 / 96 / 128, H = H_kv and
+   H = 4 H_kv, S 128, 1024 and 8192: f32 within 1e-5 and bf16 within 1e-2
+   of each tensor's largest magnitude, every backward bit-equal over two
+   runs and between the fused and the two-pass arm; the entry points under
+   both backward modes, with and without an lse cotangent, at S 1024 and
+   at S 16384, where the JAX backward policy sends the fused mode to the
+   two-pass pair), then time each kernel, its plain version and a one-call
+   PyTorch yardstick at the shapes of the main path (for attention
+   ``scaled_dot_product_attention``, timed only);
 3. the main path, each part with every launch counter set to 0 just
    before it and read just after:
    a. ``ACCL(world=8)`` runs AUTO all-reduce, f32 SUM, from 4 B to 1 GiB
@@ -90,6 +98,15 @@ any failure exits non-zero and nothing is caught and skipped:
       mm_a2a_kernel and a2a_wgrad_kernel twice each) and the baseline
       (none); output and the gradients of router, w_in, w_out and tokens
       fused against baseline and both against float64; p50 of each;
+   i. context-parallel attention at Megatron-LM 8.3B's attention width (32
+      heads of 96, causal), world 8, a global sequence of 8192 tokens:
+      Ulysses with ``use_flash`` True against False in f32 and bf16 (the
+      flash arm's forward launches flash_fwd_kernel once, its backward
+      flash_bwd_fused_kernel, the plain arm nothing; flash against plain,
+      and in f32 against float64 on two heads; p50 and tokens/s), the
+      two-pass arm through ``ACCLConfig.flash_bwd`` and at 16384 tokens
+      (flash_bwd_kv_kernel and flash_bwd_q_kernel), and ring and zigzag
+      ring attention at (8, 1024, 96), both arms, forward and backward;
 4. print the ``kernels`` line, the card line and, last, the device line.
 
 Exits 2 without printing a result when no CUDA device is visible.
@@ -1240,6 +1257,265 @@ SR_INT_OPS = 16
 
 
 # ---------------------------------------------------------------------------
+# phase 2: the flash attention kernels (rows 21-24)
+# ---------------------------------------------------------------------------
+
+#: H100 SXM dense bf16 tensor-core rate (FLOP/s), NVIDIA's data sheet: the
+#: bound of bf16 attention on the tensor cores, a later wgmma redesign's
+#: target
+BF16_TC_FLOPS = 989e12
+#: Megatron-LM 8.3B's attention (Shoeybi et al., 2019, Table 1): hidden
+#: 3072 as 32 heads of 96, multi-head; context-parallel at world 8 over a
+#: global sequence of 8192 tokens (n 1024 per rank), causal
+ATTN = {"H": 32, "d": 96, "P": 8, "n": 1024}
+
+
+def flash_flops(H: int, S: int, d: int, causal: bool) -> int:
+    """Useful flops of one attention forward: two S x S x d products per
+    head, 4 H S^2 d, half of that causal. A backward does 2.5 times that
+    (five products); its dK/dV pass alone 2 times (s, dP, dV, dK), its dQ
+    pass 1.5 times (s, dP, dQ)."""
+    f = 4 * H * S * S * d
+    return f // 2 if causal else f
+
+
+def near(what: str, got, want, rel: float) -> float:
+    """Fail unless max|got - want| <= rel max|want|; returns the ratio
+    max|got - want| / max|want|."""
+    top = want.double().abs().max().item()
+    err = (got.double() - want.double()).abs().max().item()
+    if not err <= rel * top:
+        fail(f"{what}: max|err| {err!r} > {rel} x max|want| {top!r}")
+    return err / top
+
+
+def attn_operands(gen, H: int, hkv: int, S: int, d: int, dtype):
+    """Random q (H, S, d), k and v (H_kv, S, d) and an output cotangent, in
+    dtype."""
+    import torch
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    return r(H, S, d), r(hkv, S, d), r(hkv, S, d), r(H, S, d)
+
+
+def check_flash_kernels(gen) -> None:
+    """Rows 21-24 against their plain versions on the card, f32 within 1e-5
+    and bf16 within 1e-2 of each tensor's largest magnitude: f32 and bf16,
+    causal and not, d 64 / 96 / 128, H = H_kv and H = 4 H_kv, S 128, 1024
+    and 8192. Every backward twice: the two runs, and the fused and the
+    two-pass arms, bit-equal. Then the entry points ``flash_attention`` and
+    ``flash_attention_lse`` (with and without an lse cotangent) under
+    ``bwd_mode`` fused and two_pass at S 1024 and at S 16384, where the JAX
+    backward policy answers None and sends even the fused mode to the
+    two-pass pair: the launch counters must show the arm the policy picks,
+    and the gradients match the plain versions."""
+    import torch
+    from accl_tpu_torch.ops import flash as fl
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(2, 2, 128, 64, False, f32), (8, 2, 128, 96, True, bf16),
+             (4, 1, 1024, 128, True, f32), (4, 4, 1024, 64, False, bf16),
+             (8, 2, 1024, 96, False, f32), (2, 2, 1024, 128, True, bf16),
+             (4, 4, 8192, 96, True, f32), (4, 1, 8192, 64, True, bf16),
+             (2, 2, 8192, 128, False, f32)]
+    worst = {}
+    for H, hkv, S, d, causal, dt in cases:
+        case = f"H {H} H_kv {hkv} S {S} d {d} causal {causal} {dt}"
+        rel = 1e-5 if dt == f32 else 1e-2
+        q, k, v, do = attn_operands(gen, H, hkv, S, d, dt)
+        sc = d ** -0.5
+        out, lse = fl.flash_fwd(q, k, v, causal, sc)
+        pout, plse = fl.plain_flash_fwd(q, k, v, causal, sc)
+        errs = [near(f"flash_fwd_kernel out {case}", out, pout, rel),
+                near(f"flash_fwd_kernel lse {case}", lse, plse, rel)]
+        dd = (do.float() * out.float()).sum(-1) - torch.randn(
+            (H, S), generator=gen, device="cuda")
+        args = (q, k, v, do, lse, dd, causal, sc)
+        fused = [fl.flash_bwd_fused(*args) for _ in range(2)]
+        two = [(fl.flash_bwd_q(*args), *fl.flash_bwd_kv(*args))
+               for _ in range(2)]
+        plain = fl.plain_flash_bwd_fused(*args)
+        pkv, pq = fl.plain_flash_bwd_kv(*args), fl.plain_flash_bwd_q(*args)
+        for i, name in enumerate(("dq", "dk", "dv")):
+            errs.append(near(f"flash_bwd_fused_kernel {name} {case}",
+                             fused[0][i], plain[i], rel))
+            errs.append(near(
+                f"flash_bwd_{'q' if i == 0 else 'kv'}_kernel {name} {case}",
+                two[0][i], pq if i == 0 else pkv[i - 1], rel))
+            for other, what in ((fused[1][i], "a second fused run"),
+                                (two[0][i], "the two-pass pair"),
+                                (two[1][i], "a second two-pass run")):
+                if not torch.equal(fused[0][i], other):
+                    fail(f"flash backward {name} {case}: the fused kernel's "
+                         f"bits differ from {what}")
+        worst[case] = max(errs)
+        del q, k, v, do, out, lse, pout, plse, dd, args, fused, two, plain
+    torch.cuda.empty_cache()
+    log(f"  flash kernels: {len(cases)} cases, each backward bit-equal over "
+        f"two runs and across the arms; worst error / max per case "
+        f"{json.dumps(worst)}")
+    check_flash_entry_points(gen)
+
+
+def check_flash_entry_points(gen) -> None:
+    import torch
+    from accl_tpu_torch.ops import flash as fl
+
+    for H, hkv, S, d in ((4, 2, 1024, 96), (2, 2, 16384, 128)):
+        q, k, v, do = attn_operands(gen, H, hkv, S, d, torch.float32)
+        dlse = torch.randn((H, S), generator=gen, device="cuda")
+        sc = d ** -0.5
+        pout, plse = fl.plain_flash_fwd(q, k, v, True, sc)
+        arm = fl._bwd_default_blocks(S, 128, True, 4)
+        for with_lse in (True, False):
+            dd = (do * pout).sum(-1) - (dlse if with_lse else 0.0)
+            want = fl.plain_flash_bwd_fused(q, k, v, do, plse, dd, True, sc)
+            for mode in ("fused", "two_pass"):
+                case = (f"H {H} S {S} d {d} bwd_mode {mode} lse cotangent "
+                        f"{with_lse}")
+                ts = [t.detach().requires_grad_() for t in (q, k, v)]
+                reset_counts()
+                if with_lse:
+                    o, l = fl.flash_attention_lse(*ts, causal=True,
+                                                  bwd_mode=mode)
+                    ((o * do).sum() + (l * dlse).sum()).backward()
+                else:
+                    o = fl.flash_attention(*ts, causal=True, bwd_mode=mode)
+                    (o * do).sum().backward()
+                c = counts()
+                fused = mode == "fused" and arm is not None
+                if c["flash_fwd_kernel"] != 1 or \
+                        (c["flash_bwd_fused_kernel"] > 0) != fused or \
+                        c["flash_bwd_kv_kernel"] != (0 if fused else 1) or \
+                        c["flash_bwd_q_kernel"] != (0 if fused else 1):
+                    fail(f"flash entry point {case} (policy {arm}) launched "
+                         f"{json.dumps({k: v for k, v in c.items() if v})}")
+                near(f"flash entry point out {case}", o.detach(), pout, 1e-5)
+                for t, w, name in zip(ts, want, ("dq", "dk", "dv")):
+                    near(f"flash entry point {name} {case}", t.grad, w, 1e-5)
+        log(f"  flash entry points at H {H} S {S} d {d}: the JAX backward "
+            f"policy gives {arm}, so bwd_mode fused runs "
+            f"{'the fused kernel' if arm else 'the two-pass pair'}; outputs "
+            f"and gradients match the plain versions")
+        del q, k, v, do, dlse, pout, plse, want
+    torch.cuda.empty_cache()
+
+
+def measure_flash_kernels(gen) -> dict:
+    """Rows 21-24 at the shape phase 3i gives them (:data:`ATTN`: Ulysses at
+    world 8 puts every rank's heads into one call, q, k and v (32, 8192,
+    96), causal), f32: kernel, plain version and ``scaled_dot_product_
+    attention`` on (1, 32, 8192, 96) (the forward alone; the backward as
+    forward plus backward less forward, the yardstick of row 22 and of the
+    two-pass pair together; rows 23 and 24 have no call of their own).
+    Bounds: the useful flops (:func:`flash_flops`) over the CUDA cores' f32
+    rate, or the bytes (inputs read once, outputs written once) over 3.35
+    TB/s where larger; beside them the TF32 tensor cores' bound. Then the
+    forward and the fused backward in bf16 beside SDPA in bf16 and the bf16
+    tensor cores' bound, logged."""
+    import torch
+    import torch.nn.functional as F
+    from accl_tpu_torch.ops import flash as fl
+
+    H, d, S = ATTN["H"], ATTN["d"], ATTN["P"] * ATTN["n"]
+    peak = f32_peak_flops()
+    fwd = flash_flops(H, S, d, True)
+    sc = d ** -0.5
+    res, bf16_note = {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        isz = torch.empty((), dtype=dt).element_size()
+        q, k, v, do = attn_operands(gen, H, H, S, d, dt)
+        out, lse = fl.flash_fwd(q, k, v, True, sc)
+        dd = (do.float() * out.float()).sum(-1)
+        args = (q, k, v, do, lse, dd, True, sc)
+        q4, k4, v4 = (t[None].detach().requires_grad_() for t in (q, k, v))
+        do4 = do[None]
+
+        def sdpa():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(q4, k4, v4,
+                                                      is_causal=True,
+                                                      scale=sc)
+
+        def sdpa_fb():
+            F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                           scale=sc).backward(do4)
+
+        lib_fwd = time_ms(sdpa, 5)
+        lib_bwd = time_ms(sdpa_fb, 5) - lib_fwd
+        hsd = H * S * d
+        io = {"flash_fwd_kernel": 4 * hsd * isz + H * S * 4,
+              "flash_bwd_fused_kernel": 4 * hsd * isz + 2 * H * S * 4
+              + 3 * hsd * 4,
+              "flash_bwd_kv_kernel": 4 * hsd * isz + 2 * H * S * 4
+              + 2 * hsd * 4,
+              "flash_bwd_q_kernel": 4 * hsd * isz + 2 * H * S * 4 + hsd * 4}
+        flops = {"flash_fwd_kernel": fwd,
+                 "flash_bwd_fused_kernel": 5 * fwd // 2,
+                 "flash_bwd_kv_kernel": 2 * fwd,
+                 "flash_bwd_q_kernel": 3 * fwd // 2}
+        calls = {"flash_fwd_kernel": (lambda: fl.flash_fwd(q, k, v, True, sc),
+                                      lambda: fl.plain_flash_fwd(q, k, v,
+                                                                 True, sc)),
+                 "flash_bwd_fused_kernel": (
+                     lambda: fl.flash_bwd_fused(*args),
+                     lambda: fl.plain_flash_bwd_fused(*args)),
+                 "flash_bwd_kv_kernel": (lambda: fl.flash_bwd_kv(*args),
+                                         lambda: fl.plain_flash_bwd_kv(*args)),
+                 "flash_bwd_q_kernel": (lambda: fl.flash_bwd_q(*args),
+                                        lambda: fl.plain_flash_bwd_q(*args))}
+        if dt == torch.bfloat16:
+            for name in ("flash_fwd_kernel", "flash_bwd_fused_kernel"):
+                ms = time_ms(calls[name][0], 3)
+                by_bytes = io[name] / HBM_BYTES_PER_S * 1e3
+                bf16_note[name] = {
+                    "ms": ms, "tensor_core_bound_ms": max(
+                        by_bytes, flops[name] / BF16_TC_FLOPS * 1e3),
+                    "f32_cuda_core_bound_ms": max(
+                        by_bytes, flops[name] / peak * 1e3),
+                    "library_ms": lib_fwd if name == "flash_fwd_kernel"
+                    else lib_bwd}
+            log(f"  flash bf16 at q (32, 8192, 96) causal: "
+                f"{json.dumps(bf16_note)}")
+        else:
+            for name, (kern, plain) in calls.items():
+                got, want = kern(), plain()
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                err = max((a.double() - b.double()).abs().max().item()
+                          for a, b in zip(got, want))
+                del got, want
+                by_bytes = io[name] / HBM_BYTES_PER_S * 1e3
+                by_ops = flops[name] / peak * 1e3
+                res[name] = {
+                    "shape": [[H, S, d], [H, S, d]], "max_abs_err": err,
+                    "ms": time_ms(kern, 5),
+                    "plain_ms": time_ms(plain, 1),
+                    "library_ms": {"flash_fwd_kernel": lib_fwd,
+                                   "flash_bwd_fused_kernel": lib_bwd}.get(
+                                       name),
+                    "bound_ms": max(by_bytes, by_ops),
+                    "bound_by": "bytes" if by_bytes >= by_ops
+                    else "operations",
+                    "tensor_core_bound_ms": max(
+                        by_bytes, flops[name] / TF32_TC_FLOPS * 1e3)}
+                r = res[name]
+                log(f"  {name} q (32, 8192, 96) causal f32: kernel "
+                    f"{r['ms']!r} ms, plain {r['plain_ms']!r} ms, library "
+                    f"{r['library_ms']!r} ms, bound {r['bound_ms']!r} ms "
+                    f"({r['bound_by']}; TF32 tensor cores "
+                    f"{r['tensor_core_bound_ms']!r} ms), max_abs_err "
+                    f"{r['max_abs_err']!r}")
+            log(f"  SDPA f32 backward (dq, dk, dv; the two-pass pair's "
+                f"yardstick together): {lib_bwd!r} ms")
+        del q, k, v, do, out, lse, dd, args, q4, k4, v4, do4, calls
+        torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
@@ -1248,6 +1524,7 @@ def wrappers() -> dict:
     from accl_tpu_torch.ops import collective_alltoall as ca
     from accl_tpu_torch.ops import collective_matmul as cm
     from accl_tpu_torch.ops import compression as cp
+    from accl_tpu_torch.ops import flash as fl
     from accl_tpu_torch.ops import reduce_ops as ro
     from accl_tpu_torch.parallel import pallas_chunked as pc
     from accl_tpu_torch.parallel import pallas_ring as pr
@@ -1267,7 +1544,11 @@ def wrappers() -> dict:
             "agmm_kernel": cm.agmm,
             "mmrs_kernel": cm.mmrs,
             "wgrad_kernel": cm.wgrad,
-            "a2a_wgrad_kernel": ca.a2a_wgrad}
+            "a2a_wgrad_kernel": ca.a2a_wgrad,
+            "flash_fwd_kernel": fl.flash_fwd,
+            "flash_bwd_fused_kernel": fl.flash_bwd_fused,
+            "flash_bwd_kv_kernel": fl.flash_bwd_kv,
+            "flash_bwd_q_kernel": fl.flash_bwd_q}
 
 
 def counts() -> dict:
@@ -2166,6 +2447,220 @@ def moe_train_paths(gen, kernel_ms: dict) -> dict:
     return counts()
 
 
+def dense_f64(q, k, v, cot, sc: float):
+    """Causal softmax attention of (h, S, d) heads in float64, and the
+    gradients of sum(out cot)."""
+    import torch
+    ts = [t.double().detach().requires_grad_() for t in (q, k, v)]
+    s = torch.matmul(ts[0], ts[1].transpose(-1, -2)) * sc
+    S = s.shape[-1]
+    mask = torch.ones((S, S), dtype=torch.bool, device=s.device).tril()
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), -1)
+    del s, mask
+    out = torch.matmul(p, ts[2])
+    del p
+    (out * cot.double()).sum().backward()
+    return out.detach(), [t.grad for t in ts]
+
+
+def context_paths(gen, kernel_ms: dict) -> dict:
+    """Phase 3i: context-parallel attention at Megatron-LM 8.3B's attention
+    width (:data:`ATTN`: 32 heads of 96, causal), world 8 on one card, a
+    global sequence of 8192 tokens (n 1024 per rank), random q, k, v and
+    output cotangent from a seed.
+
+    * Ulysses (q, k, v (8, 1024, 32, 96)), ``use_flash`` True against False,
+      f32 and bf16: one forward must launch ``flash_fwd_kernel`` once, one
+      forward and backward the forward once and ``flash_bwd_fused_kernel``
+      (the JAX policy's fused (512, 512) arm; its launches are the dQ-slab
+      runs), the plain arm nothing; outputs and gradients flash against
+      plain within 1e-5 (f32) or 1e-2 (bf16) of each tensor's largest
+      magnitude; in f32 the flash arm against float64 dense attention on
+      heads 0 and 17 (outputs and gradients, 1e-5); forward and forward +
+      backward p50 and tokens/s of both arms.
+    * the same f32 step with ``ACCLConfig.flash_bwd = "two_pass"`` written
+      through ``ACCL.config``: ``flash_bwd_kv_kernel`` and
+      ``flash_bwd_q_kernel`` once each and bit-equal gradients; and
+      Ulysses at 16384 tokens (n 2048), where the policy answers None and
+      the default mode runs the two-pass pair, against float64 on head 5.
+    * ring and zigzag ring attention at their API's single-head shape (8,
+      1024, 96), causal, both arms, forward and backward: flash against
+      plain (1e-5) and the outputs against float64 dense attention of the
+      8192-token sequence; p50 of each.
+    ``kernel_ms``: the flash kernels' times at the Ulysses shape (phase 2).
+    Returns the launch counts of this part."""
+    import torch
+    from accl_tpu_torch import ACCL, Communicator
+    from accl_tpu_torch.parallel import context as ctx
+
+    P, H, d, n = (ATTN[k] for k in ("P", "H", "d", "n"))
+    comm = Communicator(P, "cuda")
+    sc = d ** -0.5
+    reset_counts()
+
+    def step(prog, xs, cot):
+        ts = [x.detach().requires_grad_() for x in xs]
+        out = prog(*ts)
+        (out.float() * cot).sum().backward()
+        return out.detach(), [t.grad for t in ts]
+
+    def launched(fn):
+        before = counts()
+        r = fn()
+        return r, {k: v - before[k] for k, v in counts().items()
+                   if v - before[k]}
+
+    def heads(x, hs):
+        """(P, n, H, d) -> the (len(hs), P n, d) heads hs"""
+        return x[:, :, list(hs)].permute(2, 0, 1, 3).reshape(
+            len(hs), -1, x.shape[-1])
+
+    report = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = "f32" if dt == torch.float32 else "bf16"
+        rel = 1e-5 if dt == torch.float32 else 1e-2
+        xs = [torch.randn((P, n, H, d), generator=gen, device="cuda").to(dt)
+              for _ in range(3)]
+        cot = torch.randn((P, n, H, d), generator=gen, device="cuda")
+        progs = {f: ctx.build_ulysses_attention(comm, H, causal=True,
+                                                use_flash=f)
+                 for f in (True, False)}
+        with torch.no_grad():
+            _, fwd_l = launched(lambda: progs[True](*xs))
+        if fwd_l != {"flash_fwd_kernel": 1}:
+            fail(f"one Ulysses flash forward ({name}) launched {fwd_l}")
+        (yf, gf), step_l = launched(lambda: step(progs[True], xs, cot))
+        if set(step_l) != {"flash_fwd_kernel", "flash_bwd_fused_kernel"} \
+                or step_l["flash_fwd_kernel"] != 1:
+            fail(f"one Ulysses flash forward + backward ({name}) launched "
+                 f"{step_l}")
+        (yb, gb), plain_l = launched(lambda: step(progs[False], xs, cot))
+        if plain_l:
+            fail(f"the Ulysses plain arm launched {plain_l}")
+        errs = {"out flash - plain": near(f"Ulysses {name} out flash - "
+                                          f"plain", yf, yb, rel)}
+        for g, b, w in zip(gf, gb, ("dq", "dk", "dv")):
+            errs[f"{w} flash - plain"] = near(
+                f"Ulysses {name} {w} flash - plain", g, b, rel)
+        del yb, gb
+        if dt == torch.float32:
+            hs = (0, 17)
+            y64, g64 = dense_f64(*(heads(x, hs) for x in xs),
+                                 heads(cot, hs), sc)
+            errs["out flash - f64 (heads 0, 17)"] = near(
+                "Ulysses out flash - f64", heads(yf, hs), y64, 1e-5)
+            for g, w64, w in zip(gf, g64, ("dq", "dk", "dv")):
+                errs[f"{w} flash - f64 (heads 0, 17)"] = near(
+                    f"Ulysses {w} flash - f64", heads(g, hs), w64, 1e-5)
+            del y64, g64
+            # the two-pass arm through the session register
+            acc = ACCL(world=P, device="cuda")
+            acc.config = acc.config.replace(flash_bwd="two_pass")
+            try:
+                (yt, gt), two_l = launched(lambda: step(progs[True], xs,
+                                                        cot))
+            finally:
+                acc.config = acc.config.replace(flash_bwd="fused")
+            if two_l != {"flash_fwd_kernel": 1, "flash_bwd_kv_kernel": 1,
+                         "flash_bwd_q_kernel": 1}:
+                fail(f"Ulysses with flash_bwd two_pass launched {two_l}")
+            for g, t, w in zip(gf, gt, ("dq", "dk", "dv")):
+                if not torch.equal(g, t):
+                    fail(f"Ulysses {w}: two-pass bits differ from fused")
+            del yt, gt
+        tokens = P * n
+        t = {}
+        for f in (True, False):
+            arm = "flash" if f else "plain"
+            with torch.no_grad():
+                t[f"{arm} forward"] = p50_call(
+                    lambda: progs[f](*xs), 5 if f else 3)
+            t[f"{arm} forward + backward"] = p50_call(
+                lambda: step(progs[f], xs, cot), 3 if f else 2)
+        report[f"ulysses {name}"] = {
+            "p50_ms": {k: v * 1e3 for k, v in t.items()},
+            "tokens_per_s": {k: tokens / v for k, v in t.items()},
+            "launches per forward": fwd_l,
+            "launches per forward + backward": step_l, "errors": errs}
+        log(f"ulysses {name}, Megatron-LM 8.3B attention (32 x 96), world "
+            f"{P}, {tokens} tokens, causal: "
+            f"{json.dumps(report[f'ulysses {name}'])}")
+        del xs, cot, yf, gf, progs
+        torch.cuda.empty_cache()
+
+    # 16384 tokens: the JAX policy has no fused geometry, two-pass runs
+    n2 = 2 * n
+    xs = [torch.randn((P, n2, H, d), generator=gen, device="cuda")
+          for _ in range(3)]
+    cot = torch.randn((P, n2, H, d), generator=gen, device="cuda")
+    prog = ctx.build_ulysses_attention(comm, H, causal=True, use_flash=True)
+    (yl, gl), long_l = launched(lambda: step(prog, xs, cot))
+    if long_l != {"flash_fwd_kernel": 1, "flash_bwd_kv_kernel": 1,
+                  "flash_bwd_q_kernel": 1}:
+        fail(f"Ulysses at {P * n2} tokens launched {long_l}")
+    y64, g64 = dense_f64(*(heads(x, (5,)) for x in xs), heads(cot, (5,)),
+                         sc)
+    errs = {"out - f64 (head 5)": near("Ulysses 16384 out - f64",
+                                       heads(yl, (5,)), y64, 1e-5)}
+    for g, w64, w in zip(gl, g64, ("dq", "dk", "dv")):
+        errs[f"{w} - f64 (head 5)"] = near(f"Ulysses 16384 {w} - f64",
+                                           heads(g, (5,)), w64, 1e-5)
+    t_long = p50_call(lambda: step(prog, xs, cot), 2)
+    report["ulysses f32 16384 tokens"] = {
+        "p50_ms forward + backward": t_long * 1e3,
+        "launches per forward + backward": long_l, "errors": errs}
+    log(f"ulysses f32 at {P * n2} tokens (two-pass by the policy): "
+        f"{json.dumps(report['ulysses f32 16384 tokens'])}")
+    del xs, cot, yl, gl, y64, g64, prog
+    torch.cuda.empty_cache()
+
+    # ring and zigzag at (8, 1024, 96), single head, causal
+    from accl_tpu_torch.parallel.context import zigzag_unlayout
+    layers = {
+        "ring": lambda f: ctx.build_ring_attention(comm, causal=True,
+                                                   use_flash=f),
+        "zigzag": lambda f: ctx.build_zigzag_ring_attention(comm,
+                                                            use_flash=f)}
+    for name, build in layers.items():
+        xs = [torch.randn((P, n, d), generator=gen, device="cuda")
+              for _ in range(3)]
+        cot = torch.randn((P, n, d), generator=gen, device="cuda")
+        progs = {f: build(f) for f in (True, False)}
+        (yf, gf), fl_l = launched(lambda: step(progs[True], xs, cot))
+        (yb, gb), pl_l = launched(lambda: step(progs[False], xs, cot))
+        if pl_l or set(fl_l) != {"flash_fwd_kernel",
+                                 "flash_bwd_fused_kernel"}:
+            fail(f"{name}: flash arm launched {fl_l}, plain arm {pl_l}")
+        errs = {"out flash - plain": near(f"{name} out flash - plain", yf,
+                                          yb, 1e-5)}
+        for g, b, w in zip(gf, gb, ("dq", "dk", "dv")):
+            errs[f"{w} flash - plain"] = near(f"{name} {w} flash - plain",
+                                              g, b, 1e-5)
+        seq = (zigzag_unlayout if name == "zigzag"
+               else lambda x, w: x.reshape(-1, x.shape[-1]))
+        y64, _ = dense_f64(*(seq(x, P)[None] for x in xs),
+                           seq(cot, P)[None], sc)
+        errs["out flash - f64"] = near(f"{name} out flash - f64",
+                                       seq(yf, P)[None], y64, 1e-5)
+        t = {}
+        for f in (True, False):
+            arm = "flash" if f else "plain"
+            with torch.no_grad():
+                t[f"{arm} forward"] = p50_call(lambda: progs[f](*xs), 5)
+            t[f"{arm} forward + backward"] = p50_call(
+                lambda: step(progs[f], xs, cot), 5)
+        report[name] = {"p50_ms": {k: v * 1e3 for k, v in t.items()},
+                        "launches per forward + backward": fl_l,
+                        "errors": errs}
+        log(f"{name} attention (8, 1024, 96) causal f32: "
+            f"{json.dumps(report[name])}")
+        del xs, cot, yf, gf, yb, gb, y64, progs
+        torch.cuda.empty_cache()
+    log(f"flash kernels at the Ulysses shape (phase 2): "
+        f"{json.dumps(kernel_ms)}")
+    return counts()
+
+
 # ---------------------------------------------------------------------------
 
 REPLACES = {
@@ -2186,6 +2681,10 @@ REPLACES = {
     "mmrs_kernel": "accl_tpu/ops/collective_matmul.py:543",
     "wgrad_kernel": "accl_tpu/ops/collective_matmul.py:1050",
     "a2a_wgrad_kernel": "accl_tpu/ops/collective_alltoall.py:466",
+    "flash_fwd_kernel": "accl_tpu/ops/flash.py:62",
+    "flash_bwd_fused_kernel": "accl_tpu/ops/flash.py:724",
+    "flash_bwd_kv_kernel": "accl_tpu/ops/flash.py:612",
+    "flash_bwd_q_kernel": "accl_tpu/ops/flash.py:658",
 }
 #: the streaming variant each kernel replaces as well
 ALSO_REPLACES = {
@@ -2200,7 +2699,10 @@ SOURCE = {"ring_rs_kernel": "ring.cu", "ring_ag_kernel": "ring.cu",
           "alltoall_phase_kernel": "ring.cu", "a2a_mm_kernel": "a2a.cu",
           "mm_a2a_kernel": "a2a.cu", "agmm_kernel": "cmatmul.cu",
           "mmrs_kernel": "cmatmul.cu", "wgrad_kernel": "cmatmul.cu",
-          "a2a_wgrad_kernel": "a2a.cu"}
+          "a2a_wgrad_kernel": "a2a.cu", "flash_fwd_kernel": "flash.cu",
+          "flash_bwd_fused_kernel": "flash.cu",
+          "flash_bwd_kv_kernel": "flash.cu",
+          "flash_bwd_q_kernel": "flash.cu"}
 #: the part of phase 3 whose launch counts each kernel's entry reports
 PART = {"ring_rs_kernel": "allreduce", "ring_ag_kernel": "allreduce",
         "chunked_rs_kernel": "allreduce", "chunked_ag_kernel": "allreduce",
@@ -2210,7 +2712,9 @@ PART = {"ring_rs_kernel": "allreduce", "ring_ag_kernel": "allreduce",
         "alltoall_phase_kernel": "alltoall", "a2a_mm_kernel": "moe",
         "mm_a2a_kernel": "moe", "agmm_kernel": "tp_mlp",
         "mmrs_kernel": "tp_mlp", "wgrad_kernel": "tp_train",
-        "a2a_wgrad_kernel": "moe_train"}
+        "a2a_wgrad_kernel": "moe_train", "flash_fwd_kernel": "context",
+        "flash_bwd_fused_kernel": "context", "flash_bwd_kv_kernel": "context",
+        "flash_bwd_q_kernel": "context"}
 
 
 def main() -> int:
@@ -2243,6 +2747,7 @@ def main() -> int:
     check_moe_kernels(gen)
     check_cmatmul_kernels(gen)
     check_wgrad_kernel(gen)
+    check_flash_kernels(gen)
     total = torch.cuda.get_device_properties(0).total_memory
     big_ok = total >= 60 * GIB
     meas = measure_kernels(gen, big_ok)
@@ -2251,6 +2756,7 @@ def main() -> int:
     meas.update(measure_alltoall_kernel(gen, big_ok))
     meas.update(measure_moe_kernels(gen))
     meas.update(measure_cmatmul_kernels(gen))
+    meas.update(measure_flash_kernels(gen))
 
     parts = {"allreduce": main_path(gen), "slice2": slice2_paths(gen),
              "rooted": rooted_paths(gen, big_ok),
@@ -2264,7 +2770,9 @@ def main() -> int:
                                             "wgrad_kernel")}),
              "moe_train": moe_train_paths(gen, {
                  k: meas[k]["ms"] for k in ("a2a_mm_kernel", "mm_a2a_kernel",
-                                            "a2a_wgrad_kernel")})}
+                                            "a2a_wgrad_kernel")}),
+             "context": context_paths(gen, {
+                 k: meas[k]["ms"] for k in REPLACES if "flash" in k})}
     launches = {k: parts[PART[k]][k] for k in REPLACES}
     for k, v in launches.items():
         if v <= 0:

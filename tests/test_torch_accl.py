@@ -139,7 +139,8 @@ def test_reduce_scatter_and_allgather_match_jax(jacc, tacc):
 def test_host_api_semantics(jacc, tacc):
     """run_async, the INVALID_BUFFER_SIZE check on both packages, payloads
     that stay on the device, the RING window of reduce-scatter, copy,
-    combine and write_arithconfig."""
+    combine, write_arithconfig, and the configuration's JSON and
+    ``stats()``."""
     count = 4096
     x = _data(7, (WORLD, count))
     send = tacc.create_buffer(count, at.dataType.float32, host_data=x)
@@ -192,6 +193,7 @@ def test_host_api_semantics(jacc, tacc):
 
     _copy_and_combine(jacc, tacc)
     _write_arithconfig_checks(jacc, tacc)
+    _config_and_stats(tacc)
 
 
 def _copy_and_combine(jacc, tacc):
@@ -273,7 +275,7 @@ def _write_arithconfig_checks(jacc, tacc):
     assert hierarchical.get_dcn_wire_dtype() == "off"
 
 
-def test_config_and_stats(tacc):
+def _config_and_stats(tacc):
     """A configuration saved by the JAX package loads in the port with equal
     fields, the port's text loads back in the JAX package, and ``stats()``
     round-trips JSON."""

@@ -1,9 +1,12 @@
 """The port's CUDA kernels (the ring kernels, the rooted relays, the
-all-to-all, the plugin lanes, the fused MoE dispatch, combine and a2a-wgrad
-and the collective matmuls with their gathered wgrad) against their plain
-PyTorch versions on the card:
+all-to-all, the plugin lanes, the fused MoE dispatch, combine and a2a-wgrad,
+the collective matmuls with their gathered wgrad, and the four flash
+attention kernels) against their plain PyTorch versions on the card:
 bit-equal (``torch.equal``, or the raw bits where NaN can occur; the matmul
-kernels on integer-valued operands). This test needs an NVIDIA GPU with
+kernels on integer-valued operands), the flash kernels within 1e-5 (f32) or
+1e-2 (bf16) of each tensor's largest magnitude, their backward bit-equal
+across two runs and between the fused and the two-pass arm; the
+context-parallel layers on the card against the CPU. This test needs an NVIDIA GPU with
 ``nvcc`` (the kernels build at first use); where no card is visible it
 skips. On the card, where JAX is not installed, skip the suite's conftest:
 ``pytest --noconftest tests/test_torch_cuda.py -m cuda``.
@@ -71,6 +74,8 @@ def test_ring_kernels_on_card(gen, monkeypatch):
     _alltoall_kernels(gen)
     _moe_kernels(gen)
     _cmatmul_kernels(gen)
+    _flash_kernels(gen)
+    _context_on_card(gen)
     _accl_on_card(gen, monkeypatch)
 
 
@@ -533,3 +538,84 @@ def _rooted_on_card(gen):
         for op, a, c in zip(("bcast", "scatter", "gather", "reduce"),
                             out["cuda"], out["cpu"]):
             assert torch.equal(a, c), (op, nbytes)
+
+
+def _near(what, got, want, rel):
+    top = want.double().abs().max().item()
+    err = (got.double() - want.double()).abs().max().item()
+    assert err <= rel * top, f"{what}: max|err| {err} > {rel} x {top}"
+
+
+def _flash_kernels(gen):
+    """flash_fwd_kernel and the three backward kernels against their plain
+    versions (f32 and bf16, causal and not, d 64 / 96 / 128 and a padded
+    d 40, H = H_kv and H = 4 H_kv, S 128 to 1024); the fused and two-pass
+    gradients bit-equal, two runs bit-equal, and the fused backward split
+    into several launches (a small dQ slab budget) bit-equal to one."""
+    from accl_tpu_torch.ops import flash as fl
+    cases = [(2, 2, 128, 64, False, torch.float32),
+             (4, 1, 256, 96, True, torch.float32),
+             (2, 2, 1024, 128, True, torch.float32),
+             (8, 2, 512, 40, False, torch.float32),
+             (4, 4, 512, 96, True, torch.bfloat16),
+             (4, 1, 256, 64, False, torch.float16)]
+    for H, hkv, S, d, causal, dt in cases:
+        case = (H, hkv, S, d, causal, dt)
+        rel = 1e-5 if dt == torch.float32 else 1e-2
+        q = _make((H, S, d), dt, gen)
+        k, v = (_make((hkv, S, d), dt, gen) for _ in range(2))
+        sc = d ** -0.5
+        out, lse = fl.flash_fwd(q, k, v, causal, sc)
+        pout, plse = fl.plain_flash_fwd(q, k, v, causal, sc)
+        _near(f"fwd out {case}", out.float(), pout.float(), rel)
+        _near(f"fwd lse {case}", lse, plse, 1e-5)
+        do = _make((H, S, d), dt, gen)
+        dd = (do.float() * out.float()).sum(-1) - torch.randn(
+            (H, S), generator=gen, device="cuda")
+        fused = fl.flash_bwd_fused(q, k, v, do, lse, dd, causal, sc)
+        two = (fl.flash_bwd_q(q, k, v, do, lse, dd, causal, sc),
+               *fl.flash_bwd_kv(q, k, v, do, lse, dd, causal, sc))
+        plain = fl.plain_flash_bwd_fused(q, k, v, do, lse, dd, causal, sc)
+        again = fl.flash_bwd_fused(q, k, v, do, lse, dd, causal, sc)
+        saved = fl._DQ_SLAB_BUDGET
+        fl._DQ_SLAB_BUDGET = H * S * d * 4 * 3      # 3 k tiles a launch
+        try:
+            split = fl.flash_bwd_fused(q, k, v, do, lse, dd, causal, sc)
+        finally:
+            fl._DQ_SLAB_BUDGET = saved
+        for n, name in enumerate(("dq", "dk", "dv")):
+            _near(f"bwd {name} {case}", fused[n], plain[n], 1e-5)
+            assert torch.equal(fused[n], two[n]), (name, case)
+            assert torch.equal(fused[n], again[n]), (name, case)
+            assert torch.equal(fused[n], split[n]), (name, case)
+    torch.cuda.synchronize()
+
+
+def _context_on_card(gen):
+    """Ring, zigzag and Ulysses on the card against the CPU, use_flash off
+    and on, forward and the gradient of a sum of squares."""
+    import accl_tpu_torch as at
+    from accl_tpu_torch.parallel import context as ctx
+    W = 4
+    builds = [
+        ("ring", (W, 256, 64), lambda c, f: ctx.build_ring_attention(
+            c, causal=True, use_flash=f)),
+        ("zigzag", (W, 256, 96), lambda c, f:
+         ctx.build_zigzag_ring_attention(c, use_flash=f)),
+        ("ulysses", (W, 64, 8, 64), lambda c, f: ctx.build_ulysses_attention(
+            c, 8, causal=True, use_flash=f)),
+    ]
+    for name, shape, build in builds:
+        xs = [torch.randn(shape, generator=gen, device="cuda")
+              for _ in range(3)]
+        for flash in (False, True):
+            res = {}
+            for dev in ("cuda", "cpu"):
+                ts = [x.to(dev).detach().requires_grad_() for x in xs]
+                out = build(at.Communicator(W, dev), flash)(*ts)
+                (out ** 2).sum().backward()
+                res[dev] = [t.detach().cpu() for t in
+                            (out, *(x.grad for x in ts))]
+            for what, a, b in zip(("out", "dq", "dk", "dv"), res["cuda"],
+                                  res["cpu"]):
+                _near(f"{name} use_flash={flash} {what}", a, b, 1e-5)

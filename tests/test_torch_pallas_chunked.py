@@ -8,7 +8,8 @@ both channels in one group, and credit chains that cross groups all run;
 the fold order being the same. Each JAX oracle configuration runs once
 per module over the ``accl`` fixture's 8 devices. Each test loops over its
 cases and names the failing one, so the port adds few items to the tier-1
-collection.
+collection (the plain kernel's segment-wise check runs inside the
+all-gather test).
 """
 import jax
 import jax.numpy as jnp
@@ -111,6 +112,7 @@ def test_chunked_allgather_parity(oracle):
         got = tchunk.chunked_ag_body(tx, P=WORLD, dtype=_T[dt],
                                      segment_bytes=SEG, bidirectional=bidir)
         assert _same(want, got), (nseg, bidir, dt)
+    _plain_kernel_is_segmentwise_ring()
 
 
 # allreduce: chunk = ceil(n / 8) spans 2 segments; n is ragged
@@ -136,7 +138,7 @@ def test_chunked_allreduce_parity(oracle):
         assert _same(want, got), (func, wire)
 
 
-def test_plain_kernel_is_segmentwise_ring():
+def _plain_kernel_is_segmentwise_ring():
     """The segmented kernel's plain version equals the VMEM-range ring run
     on each segment alone, channel 1 reversed when bidirectional; its
     geometry is the JAX package's."""
