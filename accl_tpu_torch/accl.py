@@ -77,10 +77,15 @@ class ACCL:
     @config.setter
     def config(self, cfg: ACCLConfig) -> None:
         """Write-through: the registers that steer module-level policy are
-        applied on every assignment (a bad ``flash_bwd``,
+        applied on every assignment (a bad ``flash_bwd``, ``flash_decode``,
+        ``flash_prefill``, ``kv_cache_dtype``, ``kv_quant_scale``,
         ``dcn_wire_dtype`` or ``cmatmul_wire_dtype`` raises ValueError
         naming the register and leaves the config as it was)."""
         _flash_ops.set_flash_bwd_mode(cfg.flash_bwd)
+        _flash_ops.set_flash_decode_mode(cfg.flash_decode)
+        _flash_ops.set_flash_prefill_mode(cfg.flash_prefill)
+        _flash_ops.set_kv_cache_dtype(cfg.kv_cache_dtype)
+        _flash_ops.set_kv_quant_scale(cfg.kv_quant_scale)
         hierarchical.set_dcn_wire_dtype(cfg.dcn_wire_dtype)
         _cm_ops.set_wire_dtype(cfg.cmatmul_wire_dtype)
         _cm_ops.set_overlap_enabled(cfg.cmatmul_overlap)

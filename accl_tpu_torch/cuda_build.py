@@ -26,7 +26,7 @@ BUILD_DIR = _PKG / "_cuda_build"
 #: sources, by library name
 SOURCES = {"ring": SRC_DIR / "ring.cu", "plugins": SRC_DIR / "plugins.cu",
            "a2a": SRC_DIR / "a2a.cu", "cmatmul": SRC_DIR / "cmatmul.cu",
-           "flash": SRC_DIR / "flash.cu"}
+           "flash": SRC_DIR / "flash.cu", "decode": SRC_DIR / "decode.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
@@ -182,9 +182,17 @@ def _declare_flash(lib: ctypes.CDLL) -> None:
     lib.accl_flash_dq_reduce.restype = c_int
 
 
+def _declare_decode(lib: ctypes.CDLL) -> None:
+    c_int, c_p, c_f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+    for fn in (lib.accl_decode_paged, lib.accl_decode_span):
+        fn.argtypes = [c_int, c_int, *[c_p] * 7, *[c_int] * 8, c_f, c_f,
+                       c_p]
+        fn.restype = c_int
+
+
 _DECLARE = {"ring": _declare_ring, "plugins": _declare_plugins,
             "a2a": _declare_a2a, "cmatmul": _declare_cmatmul,
-            "flash": _declare_flash}
+            "flash": _declare_flash, "decode": _declare_decode}
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

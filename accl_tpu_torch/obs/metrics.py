@@ -2,22 +2,25 @@
 
 The registry core the collective path calls, under the JAX package's metric
 names: counters, gauges and histograms keyed ``name{label="value",...}``,
-:func:`snapshot`/:func:`delta`, and the dispatch helpers :func:`tick` and
-:func:`note_call`. Series written by this slice:
+:func:`snapshot`/:func:`delta`, and the dispatch helpers :func:`tick`,
+:func:`note_call` and :func:`note_latency_dispatch`. Series written so far:
 
-==================================  =========  ==============================
-``accl_calls_total``                counter    op, algorithm, dtype, bucket
-``accl_bytes_total``                counter    op, algorithm, dtype, bucket
-``accl_dispatch_seconds``           histogram  op
-``accl_algorithm_selected_total``   counter    op, algorithm
-``accl_algorithm_fallback_total``   counter    op, algorithm
-``accl_select_decline_total``       counter    op, reason
-``accl_program_cache_total``        counter    event (hit | miss | evict)
-``accl_program_cache_size``         gauge
-==================================  =========  ==============================
+=====================================  =========  ============================
+``accl_calls_total``                   counter    op, algorithm, dtype, bucket
+``accl_bytes_total``                   counter    op, algorithm, dtype, bucket
+``accl_dispatch_seconds``              histogram  op
+``accl_algorithm_selected_total``      counter    op, algorithm
+``accl_algorithm_fallback_total``      counter    op, algorithm
+``accl_select_decline_total``          counter    op, reason
+``accl_program_cache_total``           counter    event (hit | miss | evict)
+``accl_program_cache_size``            gauge
+``accl_latency_dispatch_seconds``      histogram  path (µs buckets)
+``accl_serving_tokens_total``          counter    phase, accepted
+``accl_flash_decode_fallback_total``   counter    reason
+``accl_flash_prefill_fallback_total``  counter    reason
+=====================================  =========  ============================
 
-The catalog, exporters and the latency-tier histogram come with the
-observability slice.
+The catalog and the exporters come with the observability slice.
 """
 from __future__ import annotations
 
@@ -34,7 +37,20 @@ ENABLED = True
 BUCKETS = (1e-6, 4e-6, 16e-6, 64e-6, 256e-6, 1e-3, 4e-3, 16e-3,
            64e-3, 256e-3, 1.0, 10.0)
 
+#: microsecond-resolution buckets of the latency-tier dispatch histogram
+US_BUCKETS = (1e-6, 2e-6, 4e-6, 8e-6, 16e-6, 32e-6, 64e-6, 128e-6,
+              256e-6, 512e-6, 1e-3, 4e-3, 16e-3, 256e-3, 10.0)
+#: bucket bounds by metric name; anything absent uses :data:`BUCKETS`
+_BUCKET_OVERRIDES = {
+    "accl_latency_dispatch_seconds": US_BUCKETS,
+}
+
 _KiB = 1024
+
+
+def _buckets_for(key: str):
+    """The bucket bounds of a series key (``name{labels}``)."""
+    return _BUCKET_OVERRIDES.get(key.split("{", 1)[0], BUCKETS)
 
 
 def size_bucket(nbytes: int) -> str:
@@ -79,12 +95,13 @@ class MetricsRegistry:
     def observe(self, name: str, value: float,
                 labels: Tuple[Tuple[str, str], ...] = ()) -> None:
         key = name + _label_str(labels)
+        edges = _BUCKET_OVERRIDES.get(name, BUCKETS)
         with self._lock:
             h = self._hists.get(key)
             if h is None:
-                h = [0] * len(BUCKETS) + [0.0, 0]
+                h = [0] * len(edges) + [0.0, 0]
                 self._hists[key] = h
-            for i, edge in enumerate(BUCKETS):
+            for i, edge in enumerate(edges):
                 if value <= edge:
                     h[i] += 1
                     break
@@ -94,7 +111,8 @@ class MetricsRegistry:
     def snapshot(self) -> dict:
         with self._lock:
             hists = {
-                k: {"buckets": {repr(e): h[i] for i, e in enumerate(BUCKETS)},
+                k: {"buckets": {repr(e): h[i]
+                                for i, e in enumerate(_buckets_for(k))},
                     "sum": h[-2], "count": h[-1]}
                 for k, h in self._hists.items()
             }
@@ -198,3 +216,14 @@ def set_gauge(name: str, value: float,
     if not ENABLED:
         return
     REGISTRY.set_gauge(name, value, labels)
+
+
+def note_latency_dispatch(path: str, t0: float) -> None:
+    """One latency-tier dispatch, host entry to launched, into
+    ``accl_latency_dispatch_seconds{path}`` (:data:`US_BUCKETS`): the
+    serving steps observe ``prefill`` and ``decode``. No-op when disabled
+    or when ``t0`` is 0.0 (the disabled :func:`tick`)."""
+    if not ENABLED or not t0:
+        return
+    REGISTRY.observe("accl_latency_dispatch_seconds",
+                     time.perf_counter() - t0, (("path", path),))

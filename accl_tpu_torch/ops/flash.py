@@ -42,8 +42,28 @@ on the card exactly as they do on a TPU (``None``: two-pass).
 
 The backward mode register (``ACCLConfig.flash_bwd``, written through by
 ``ACCL.config``) is :func:`set_flash_bwd_mode`; ``bwd_mode`` overrides it
-per call. The head-packed d=64 arm, the paged decode and prefill arms and
-their KV codecs are not ported yet (``ROADMAP.md`` queue 2, rows 25-30).
+per call.
+
+The serving arm (``flash.py:1347-2300``): the decode, prefill, KV-codec
+and quantization-scale registers (``ACCLConfig.flash_decode``,
+``flash_prefill``, ``kv_cache_dtype``, ``kv_quant_scale``), the codecs
+(:func:`quantize_kv`, :func:`dequantize_kv`, :func:`quantize_kv_paged`),
+the plans (:func:`decode_plan`, :func:`prefill_plan`, the JAX package's
+numbers and 12 MiB budget), the cache writes (:func:`kv_cache_append`,
+:func:`kv_cache_append_multi`, in place) and the entry points
+:func:`flash_decode` and :func:`flash_prefill`, over two kernels with one
+plain version, :func:`plain_paged_decode`:
+
+* :func:`paged_decode` replaces ``flash.py:_decode_kernel`` (row 29), one
+  query row per GQA head of each slot. Kernel:
+  ``csrc/decode.cu:flash_decode_kernel``.
+* :func:`paged_decode_span` replaces ``flash.py:_decode_span_kernel`` (row
+  30), span rows per head with per-row causal horizons (a prefill chunk).
+  Kernel: ``csrc/decode.cu:flash_decode_span_kernel``.
+
+Where a plan declines, or in mode "unpaged", the gathered-chain reference
+runs, counted per reason. The head-packed d=64 arm and the speculative
+and handoff helpers are not ported yet (``ROADMAP.md`` items 12 and 14).
 """
 from __future__ import annotations
 
@@ -609,3 +629,634 @@ def flash_attention_lse(q, k, v, causal: bool = False,
                             bwd_mode)
     out, lse = _Flash.apply(*args)
     return (out[0], lse[0]) if single else (out, lse)
+
+
+# ---------------------------------------------------------------------------
+# the serving arm: decode and prefill registers, the KV-at-rest codecs
+# (``accl_tpu/ops/flash.py:1347-1537``)
+# ---------------------------------------------------------------------------
+
+#: decode-path mode (``ACCLConfig.flash_decode``): "paged" runs the paged
+#: kernel wherever ``decode_plan`` admits it, "unpaged" pins the gathered-
+#: chain reference
+_DECODE_MODES = ("paged", "unpaged")
+_DECODE_MODE = "paged"
+#: prefill-path mode (``ACCLConfig.flash_prefill``), the same contract
+_PREFILL_MODES = ("paged", "unpaged")
+_PREFILL_MODE = "paged"
+#: KV-at-rest codec of the page pools (``ACCLConfig.kv_cache_dtype``):
+#: "off" stores the model dtype, "bf16" and "bf16_sr" bfloat16 (the latter
+#: written through the stochastic-rounding kernel), "int8" the fixed-scale
+#: quantized lane, dequantized in the kernel's read sweep
+_KV_DTYPES = ("off", "bf16", "int8", "bf16_sr")
+_KV_DTYPE = "off"
+#: the int8 codec's fixed scale: stored value clip(round(x * scale))
+_KV_QUANT_SCALE = 32.0
+#: amax floor of the per-(head, page) int8 scales (an all-zero page)
+_KV_SCALE_EPS = 1e-6
+#: the most pool rows of one online-softmax step of the paged kernels (the
+#: card kernels' staged tile, ``csrc/decode.cu``); a longer page takes
+#: several steps, where the TPU kernels take one
+_PAGE_STEP = 64
+
+
+def set_flash_decode_mode(mode: str) -> None:
+    """The module-default decode mode (``ACCLConfig.flash_decode`` lands
+    here). Per-call override: ``decode_mode``."""
+    global _DECODE_MODE
+    if mode not in _DECODE_MODES:
+        raise ValueError(f"flash_decode mode {mode!r} not in {_DECODE_MODES}")
+    _DECODE_MODE = mode
+
+
+def get_flash_decode_mode() -> str:
+    return _DECODE_MODE
+
+
+def set_flash_prefill_mode(mode: str) -> None:
+    """The module-default prefill mode (``ACCLConfig.flash_prefill`` lands
+    here). Per-call override: ``prefill_mode``."""
+    global _PREFILL_MODE
+    if mode not in _PREFILL_MODES:
+        raise ValueError(
+            f"flash_prefill mode {mode!r} not in {_PREFILL_MODES}")
+    _PREFILL_MODE = mode
+
+
+def get_flash_prefill_mode() -> str:
+    return _PREFILL_MODE
+
+
+def set_kv_cache_dtype(mode: str) -> None:
+    """The at-rest KV codec (``ACCLConfig.kv_cache_dtype``). Writes only:
+    reads follow the pool's storage dtype."""
+    global _KV_DTYPE
+    if mode not in _KV_DTYPES:
+        raise ValueError(f"kv_cache_dtype {mode!r} not in {_KV_DTYPES}")
+    _KV_DTYPE = mode
+
+
+def get_kv_cache_dtype() -> str:
+    return _KV_DTYPE
+
+
+def set_kv_quant_scale(scale: float) -> None:
+    """The int8 codec's fixed scale (``ACCLConfig.kv_quant_scale``); must be
+    positive."""
+    global _KV_QUANT_SCALE
+    if not scale > 0:
+        raise ValueError(f"kv_quant_scale must be > 0, got {scale}")
+    _KV_QUANT_SCALE = float(scale)
+
+
+def get_kv_quant_scale() -> float:
+    return _KV_QUANT_SCALE
+
+
+def kv_storage_dtype(compute_dtype, mode: Optional[str] = None):
+    """The page pools' at-rest dtype under codec ``mode`` (None: the
+    register)."""
+    mode = mode or _KV_DTYPE
+    if mode not in _KV_DTYPES:
+        raise ValueError(f"kv_cache_dtype {mode!r} not in {_KV_DTYPES}")
+    if mode == "off":
+        return compute_dtype
+    if mode == "int8":
+        return torch.int8
+    return torch.bfloat16
+
+
+def quantize_kv(x, pool_dtype, mode: Optional[str] = None, seed=None):
+    """New K/V rows in the pool's at-rest dtype: int8 pools quantize with
+    the fixed scale, float pools cast; ``mode`` "bf16_sr" (None: the
+    register) rounds f32 into a bf16 pool stochastically, through
+    ``compression.pallas_compress_stochastic`` (row 3), seeded by default
+    with the wrapping int32 sum of the rows' f32 bits, so that every token
+    draws a fresh stream."""
+    mode = mode or _KV_DTYPE
+    if pool_dtype == torch.int8:
+        s = x.float() * _KV_QUANT_SCALE
+        return torch.clamp(torch.round(s), -127, 127).to(torch.int8)
+    if (mode == "bf16_sr" and pool_dtype == torch.bfloat16
+            and x.dtype == _F32):
+        from . import compression
+        x = x.contiguous()
+        if seed is None:
+            seed = compression.payload_seed_base(x.reshape(1, -1))
+        return compression.pallas_compress_stochastic(x, torch.bfloat16,
+                                                      seed)
+    return x.to(pool_dtype)
+
+
+def dequantize_kv(pages, compute_dtype=_F32, scales=None):
+    """The inverse of :func:`quantize_kv` for the reference reads: int8
+    pools divide the fixed scale (or, with ``scales`` (H_kv, n_pages) from
+    :func:`quantize_kv_paged`, each page's own scale) back out; float pools
+    widen."""
+    if pages.dtype == torch.int8:
+        if scales is not None:
+            return pages.to(compute_dtype) / scales[:, :, None, None]
+        return pages.to(compute_dtype) / _KV_QUANT_SCALE
+    return pages.to(compute_dtype)
+
+
+def quantize_kv_paged(x, mode: Optional[str] = None):
+    """A whole pool ``x`` (H_kv, n_pages, page, d) to int8 with per-(head,
+    page) scales ``127 / amax``: ``(pool_int8, scales (H_kv, n_pages)
+    f32)``. Other modes cast through :func:`quantize_kv`, scales None."""
+    mode = mode or _KV_DTYPE
+    store = kv_storage_dtype(x.dtype, mode)
+    if store != torch.int8:
+        return quantize_kv(x, store, mode=mode), None
+    xf = x.float()
+    amax = xf.abs().amax(dim=(2, 3))
+    # a tensor numerator: torch takes ``scalar / t`` as ``reciprocal(t) *
+    # scalar``, two roundings where the JAX package divides once
+    scales = torch.full_like(amax, 127.0) / torch.clamp_min(amax,
+                                                            _KV_SCALE_EPS)
+    s = xf * scales[:, :, None, None]
+    return torch.clamp(torch.round(s), -127, 127).to(torch.int8), scales
+
+
+def _inverse(scales):
+    """1 / scales in f32, one rounding (the per-page codec's multipliers)."""
+    s = scales.to(_F32)
+    return torch.ones_like(s) / s
+
+
+def _kv_inv_scale(pool_dtype) -> Optional[float]:
+    """The fixed codec's in-kernel dequant multiplier (None: float pool)."""
+    if pool_dtype == torch.int8:
+        return 1.0 / _KV_QUANT_SCALE
+    return None
+
+
+def _count_decode_fallback(reason: str) -> None:
+    from ..obs import metrics
+    metrics.inc("accl_flash_decode_fallback_total",
+                labels=(("reason", reason),))
+
+
+def _count_prefill_fallback(reason: str) -> None:
+    from ..obs import metrics
+    metrics.inc("accl_flash_prefill_fallback_total",
+                labels=(("reason", reason),))
+
+
+# ---------------------------------------------------------------------------
+# plans (``accl_tpu/ops/flash.py:1539``, ``:2198``)
+# ---------------------------------------------------------------------------
+
+def decode_plan(B: int, H: int, H_kv: int, d: int, page: int,
+                pages_max: int, itemsize: int = 2, span: int = 1,
+                kv_itemsize: Optional[int] = None):
+    """The paged kernels' tile, ``({"gp", "dp", "vmem"}, "ok")``, or
+    ``(None, reason)``: ``geometry`` (d not a multiple of 128, page not a
+    multiple of 8, or of 32 for int8 pools) or ``vmem_miss`` (the TPU tile
+    estimate over the 12 MiB budget). ``gp`` is g·span rounded up to 8.
+    The JAX package's numbers, kept so that both decide alike."""
+    if H % H_kv or B < 1 or pages_max < 1 or span < 1:
+        return None, "geometry"
+    if d % 128 or d == 0:
+        return None, "geometry"
+    kvi = kv_itemsize if kv_itemsize is not None else itemsize
+    sub = 32 if kvi == 1 else 8
+    if page % sub or page == 0:
+        return None, "geometry"
+    g = H // H_kv
+    gp = -(-g * span // 8) * 8
+    est = (4 * page * d * kvi
+           + 3 * gp * d * 4
+           + 2 * gp * 128 * 4
+           + 2 * gp * page * 4)
+    if est > _VMEM_BUDGET:
+        return None, "vmem_miss"
+    return {"gp": gp, "dp": d, "vmem": est}, "ok"
+
+
+def prefill_plan(H: int, H_kv: int, d: int, page: int, pages_max: int,
+                 itemsize: int = 2, chunk: Optional[int] = None,
+                 kv_itemsize: Optional[int] = None):
+    """The chunked-prefill tile: ``decode_plan`` at ``span = chunk``. A
+    given chunk must be page-granular; ``chunk=None`` picks the largest
+    page multiple <= 512 whose tile fits. ``({"chunk", "gp", "dp",
+    "vmem"}, "ok")`` or ``(None, reason)``."""
+    if chunk is not None:
+        if chunk < 1 or chunk % page:
+            return None, "geometry"
+        plan, reason = decode_plan(1, H, H_kv, d, page, pages_max,
+                                   itemsize, span=chunk,
+                                   kv_itemsize=kv_itemsize)
+        if plan is None:
+            return None, reason
+        return {"chunk": chunk, **plan}, "ok"
+    best = None
+    c = page
+    while c <= 512:
+        plan, _ = decode_plan(1, H, H_kv, d, page, pages_max, itemsize,
+                              span=c, kv_itemsize=kv_itemsize)
+        if plan is not None:
+            best = {"chunk": c, **plan}
+        c += page
+    if best is None:
+        _, reason = decode_plan(1, H, H_kv, d, page, pages_max, itemsize,
+                                span=page, kv_itemsize=kv_itemsize)
+        return None, reason
+    return best, "ok"
+
+
+def _resolve_decode(decode_mode: Optional[str]) -> str:
+    mode = decode_mode or _DECODE_MODE
+    if mode not in _DECODE_MODES:
+        raise ValueError(f"decode_mode {mode!r} not in {_DECODE_MODES}")
+    return mode
+
+
+def _resolve_prefill(prefill_mode: Optional[str]) -> str:
+    mode = prefill_mode or _PREFILL_MODE
+    if mode not in _PREFILL_MODES:
+        raise ValueError(
+            f"prefill_mode {mode!r} not in {_PREFILL_MODES}")
+    return mode
+
+
+# ---------------------------------------------------------------------------
+# kernels 29-30 (``flash.py:1590`` ``_decode_kernel``, ``:1661``
+# ``_decode_span_kernel``) and their plain version
+# ---------------------------------------------------------------------------
+
+def plain_paged_decode(q4, k_pages, v_pages, block_tables, seq_lens,
+                       scale: float, span: int = 1, kv_scales=None):
+    """The page sweep of both paged kernels: q4 (B, H_kv, gp, d), pools
+    (H_kv, n_pages, page, d) in f32, bf16 or int8, block_tables (B,
+    pages_max), seq_lens (B,); out like q4. Row r of a slot's tile attends
+    positions ``< len - span + 1 + r % span``. Page j of every slot is one
+    exp2-domain online-softmax step (a page over 64 rows one step per
+    64-row part, as the card kernels take it), taken only by slots whose
+    length passes the step's first position (dead pages are skipped); int8
+    pages are widened and multiplied by the inverse scale (``kv_scales``'
+    per page, else the fixed codec's), and with a bf16 pool P is rounded to
+    bf16 before P·V, as the TPU kernels do. A slot of length 0 gives exact
+    zeros."""
+    B, hkv, gp, d = q4.shape
+    page = k_pages.shape[2]
+    dev = q4.device
+    c = scale * _LOG2E
+    lens = seq_lens.to(torch.int64)
+    int8 = k_pages.dtype == torch.int8
+    p_dtype = _F32 if int8 else k_pages.dtype
+    inv = None
+    if kv_scales is not None:
+        inv = _inverse(kv_scales)
+    kv_inv = _kv_inv_scale(k_pages.dtype)
+    qf = q4.float()
+    acc = torch.zeros((B, hkv, gp, d), dtype=_F32, device=dev)
+    m = torch.full((B, hkv, gp, 1), _NEG_INF, dtype=_F32, device=dev)
+    l = torch.zeros((B, hkv, gp, 1), dtype=_F32, device=dev)
+    rows = torch.arange(gp, device=dev)
+    row_len = (lens[:, None] - span + 1 + rows % span)[:, None, :, None]
+    n_live = -(-int(lens.max()) // page)
+    for j in range(min(n_live, block_tables.shape[1])):
+        pidx = block_tables[:, j].to(torch.int64)
+        s_inv = kv_inv
+        if inv is not None:
+            s_inv = inv[:, pidx].transpose(0, 1)[:, :, None, None]
+        for p0 in range(0, page, _PAGE_STEP):
+            rows = min(_PAGE_STEP, page - p0)
+            # (B, hkv, rows, d)
+            kb = k_pages[:, pidx, p0:p0 + rows].transpose(0, 1).float()
+            vb = v_pages[:, pidx, p0:p0 + rows].transpose(0, 1).float()
+            if s_inv is not None:
+                kb, vb = kb * s_inv, vb * s_inv
+            s = torch.matmul(qf, kb.transpose(-1, -2)) * c
+            cols = j * page + p0 + torch.arange(rows, device=dev)
+            s = torch.where(cols < row_len, s, _NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.exp2(s - m_new)
+            alpha = torch.exp2(m - m_new)
+            l_new = l * alpha + p.sum(-1, keepdim=True)
+            pv = torch.matmul(p.to(p_dtype).float(), vb)
+            live = (j * page + p0 < lens)[:, None, None, None]
+            acc = torch.where(live, acc * alpha + pv, acc)
+            m = torch.where(live, m_new, m)
+            l = torch.where(live, l_new, l)
+    safe_l = torch.where(l > 0, l, 1.0)
+    return (acc / safe_l).to(q4.dtype)
+
+
+_KV_CODE = {torch.float32: 3, torch.bfloat16: 7, torch.int8: 1}
+
+
+
+def _decode_call(name: str, fn: str, q4, k_pages, v_pages, block_tables,
+                 seq_lens, scale: float, span: int, kv_scales):
+    """Launch one of ``csrc/decode.cu``'s two kernels; checks what they
+    take (contiguous CUDA tensors; q f32 or bf16; pools f32, bf16 or int8;
+    d 128; int32 tables and lengths)."""
+    for t in (q4, k_pages, v_pages, block_tables, seq_lens):
+        if t.device != q4.device or not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous on one "
+                             f"device")
+    if q4.dtype not in (_F32, torch.bfloat16) \
+            or k_pages.dtype not in _KV_CODE or v_pages.dtype != k_pages.dtype:
+        raise ValueError(f"{name} takes q in f32 or bf16 and pools in f32, "
+                         f"bf16 or int8, got {q4.dtype}, {k_pages.dtype}, "
+                         f"{v_pages.dtype}")
+    B, hkv, gp, d = q4.shape
+    if d != 128:
+        raise ValueError(f"{name}: the card kernel takes head dim 128, got "
+                         f"{d}")
+    if block_tables.dtype != torch.int32 or seq_lens.dtype != torch.int32:
+        raise ValueError(f"{name}: block tables and lengths must be int32")
+    inv_ptr, kv_inv = 0, 0.0
+    if kv_scales is not None:
+        inv = _inverse(kv_scales).contiguous()
+        inv_ptr = inv.data_ptr()
+    elif k_pages.dtype == torch.int8:
+        kv_inv = _kv_inv_scale(torch.int8)
+    out = torch.empty_like(q4)
+    n_pages, page = k_pages.shape[1], k_pages.shape[2]
+    lib = cuda_build.load("decode")
+    with torch.cuda.device(q4.device):
+        rc = getattr(lib, fn)(
+            _DT_CODE[q4.dtype], _KV_CODE[k_pages.dtype], _ptr(q4),
+            _ptr(k_pages), _ptr(v_pages), _ptr(block_tables),
+            _ptr(seq_lens), inv_ptr, _ptr(out), B, hkv, gp, d, n_pages,
+            page, block_tables.shape[1], span,
+            ctypes.c_float(scale * _LOG2E), ctypes.c_float(kv_inv),
+            cuda_build.stream_handle(q4.device))
+    cuda_build.check(lib, rc, name)
+    return out
+
+
+def paged_decode(q4, k_pages, v_pages, block_tables, seq_lens,
+                 scale: float, kv_scales=None):
+    """Kernel 29 (replaces ``flash.py:_decode_kernel``): one query row per
+    GQA head of each slot, :func:`plain_paged_decode` at span 1. On a CUDA
+    tensor it launches ``csrc/decode.cu:flash_decode_kernel``."""
+    if q4.device.type != "cuda":
+        return plain_paged_decode(q4, k_pages, v_pages, block_tables,
+                                  seq_lens, scale, 1, kv_scales)
+    out = _decode_call("flash_decode_kernel", "accl_decode_paged", q4,
+                       k_pages, v_pages, block_tables, seq_lens, scale, 1,
+                       kv_scales)
+    paged_decode.launches += 1
+    return out
+
+
+paged_decode.launches = 0
+
+
+def paged_decode_span(q4, k_pages, v_pages, block_tables, seq_lens,
+                      scale: float, span: int, kv_scales=None):
+    """Kernel 30 (replaces ``flash.py:_decode_span_kernel``): ``span``
+    query rows per GQA head laid out (g, span), each with its own causal
+    horizon, :func:`plain_paged_decode` at ``span``. On a CUDA tensor it
+    launches ``csrc/decode.cu:flash_decode_span_kernel``."""
+    if q4.device.type != "cuda":
+        return plain_paged_decode(q4, k_pages, v_pages, block_tables,
+                                  seq_lens, scale, span, kv_scales)
+    out = _decode_call("flash_decode_span_kernel", "accl_decode_span", q4,
+                       k_pages, v_pages, block_tables, seq_lens, scale,
+                       span, kv_scales)
+    paged_decode_span.launches += 1
+    return out
+
+
+paged_decode_span.launches = 0
+
+
+def _flash_decode_paged(q4, k_pages, v_pages, block_tables, seq_lens,
+                        sc: float, span: int = 1, kv_scales=None):
+    """Span 1 goes to kernel 29, longer spans to kernel 30, as the JAX
+    package routes them."""
+    q4 = q4.contiguous()
+    bt = block_tables.to(torch.int32).contiguous()
+    lens = seq_lens.to(torch.int32).contiguous()
+    if span == 1:
+        return paged_decode(q4, k_pages, v_pages, bt, lens, sc, kv_scales)
+    return paged_decode_span(q4, k_pages, v_pages, bt, lens, sc, span,
+                             kv_scales)
+
+
+def _gather_pages(pages, block_tables):
+    """(H_kv, n_pages, page, d) pool and (B, pages_max) table -> (B, H_kv,
+    pages_max * page, d) chains."""
+    g = pages[:, block_tables.to(torch.int64)]   # (hkv, B, pmax, page, d)
+    hkv = pages.shape[0]
+    B, pmax = block_tables.shape
+    return g.transpose(0, 1).reshape(B, hkv, pmax * pages.shape[2],
+                                     pages.shape[3])
+
+
+def _decode_reference(q, k_pages, v_pages, block_tables, seq_lens,
+                      sc: float, span: int = 1, kv_scales=None):
+    """The unpaged reference (``flash.py:_decode_reference``): the gathered
+    chains, one dense masked softmax per slot. q (B, H, d), or (B, span, H,
+    d) with row j's horizon ``len - span + 1 + j``."""
+    if span == 1:
+        B, H, d = q.shape
+        q = q[:, None]
+    else:
+        B, _, H, d = q.shape
+    hkv = k_pages.shape[0]
+    g = H // hkv
+    k = _gather_pages(dequantize_kv(k_pages, scales=kv_scales), block_tables)
+    v = _gather_pages(dequantize_kv(v_pages, scales=kv_scales), block_tables)
+    qg = q.reshape(B, span, hkv, g, d).float()
+    s = torch.einsum("bjhgd,bhsd->bjhgs", qg, k) * sc
+    row_len = (seq_lens.to(torch.int64)[:, None] - span + 1
+               + torch.arange(span, device=q.device)[None, :])
+    live = (torch.arange(k.shape[2], device=q.device)[None, None, :]
+            < row_len[:, :, None])[:, :, None, None, :]
+    s = torch.where(live, s, _NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(live, torch.exp(s - m), 0.0)
+    l = p.sum(-1, keepdim=True)
+    out = torch.einsum("bjhgs,bhsd->bjhgd", p / torch.where(l > 0, l, 1.0),
+                       v)
+    out = out.reshape(B, span, H, d).to(q.dtype)
+    return out[:, 0] if span == 1 else out
+
+
+def _check_kv_scales(kv_scales, k_pages) -> None:
+    """Per-(head, page) scales belong to int8 pools, one per (kv head, pool
+    page)."""
+    if kv_scales is None:
+        return
+    if k_pages.dtype != torch.int8:
+        raise ValueError(
+            f"kv_scales given but the pool dtype is {k_pages.dtype} — "
+            f"the per-(head,page) codec is int8-at-rest only")
+    want = (k_pages.shape[0], k_pages.shape[1])
+    if tuple(kv_scales.shape) != want:
+        raise ValueError(
+            f"kv_scales shape {tuple(kv_scales.shape)} != (H_kv, n_pages) "
+            f"{want}")
+
+
+def flash_decode(q, k_pages, v_pages, block_tables, seq_lens,
+                 scale: Optional[float] = None,
+                 decode_mode: Optional[str] = None, kv_scales=None):
+    """Single-query attention over the paged KV cache, one decode step:
+    q (B, H, d), pools (H_kv, n_pages, page, d) with ``H % H_kv == 0``,
+    block_tables (B, pages_max), seq_lens (B,) (append the token first).
+    Returns (B, H, d) in q's dtype; a slot of length 0 gives zeros. Where
+    ``decode_plan`` admits the geometry, kernel 29 runs; otherwise, or in
+    mode "unpaged", the gathered-chain reference, counted per reason in
+    ``accl_flash_decode_fallback_total``. ``kv_scales`` (H_kv, n_pages)
+    switches int8 pools to the per-page codec."""
+    B, H, d = q.shape
+    if k_pages.shape != v_pages.shape or k_pages.dim() != 4 \
+            or k_pages.shape[3] != d:
+        raise ValueError(
+            f"k/v pages {tuple(k_pages.shape)}/{tuple(v_pages.shape)} "
+            f"incompatible with q {tuple(q.shape)}: need (H_kv, n_pages, "
+            f"page, d)")
+    hkv = k_pages.shape[0]
+    if H % hkv:
+        raise ValueError(f"q heads {H} not a multiple of kv heads {hkv}")
+    if block_tables.shape[0] != B or tuple(seq_lens.shape) != (B,):
+        raise ValueError(
+            f"block_tables {tuple(block_tables.shape)} / seq_lens "
+            f"{tuple(seq_lens.shape)} must lead with the slot dim B={B}")
+    _check_kv_scales(kv_scales, k_pages)
+    sc = scale if scale is not None else 1.0 / (d ** 0.5)
+    if _resolve_decode(decode_mode) != "paged":
+        _count_decode_fallback("mode")
+        return _decode_reference(q, k_pages, v_pages, block_tables,
+                                 seq_lens, sc, kv_scales=kv_scales)
+    plan, reason = decode_plan(B, H, hkv, d, k_pages.shape[2],
+                               block_tables.shape[1], q.element_size(),
+                               kv_itemsize=k_pages.element_size())
+    if plan is None:
+        _count_decode_fallback(reason)
+        return _decode_reference(q, k_pages, v_pages, block_tables,
+                                 seq_lens, sc, kv_scales=kv_scales)
+    g, gp = H // hkv, plan["gp"]
+    q4 = torch.nn.functional.pad(q.reshape(B, hkv, g, d),
+                                 (0, 0, 0, gp - g))
+    out = _flash_decode_paged(q4, k_pages, v_pages, block_tables, seq_lens,
+                              sc, kv_scales=kv_scales)
+    return out[:, :, :g].reshape(B, H, d)
+
+
+# ---------------------------------------------------------------------------
+# the cache writes (``flash.py:2007``, ``:2056``) and chunked prefill
+# (``:2246``)
+# ---------------------------------------------------------------------------
+
+def _write_rows(k_pages, v_pages, ok, pidx, off, kn, vn) -> None:
+    """Rows ``kn[:, lane]`` into pool page ``pidx[lane]``, row
+    ``off[lane]``, for the lanes where ``ok`` holds; the others are
+    dropped (the JAX scatter's ``mode="drop"``). Selecting the lanes reads
+    ``ok`` back to the host: one sync a call. A dropped lane is never
+    redirected to a real row, which could be a live lane's."""
+    sel = ok.nonzero(as_tuple=True)
+    k_pages[:, pidx[sel], off[sel]] = kn[(slice(None), *sel)]
+    v_pages[:, pidx[sel], off[sel]] = vn[(slice(None), *sel)]
+
+
+def kv_cache_append(k_pages, v_pages, block_tables, seq_lens, k_new, v_new,
+                    active=None):
+    """Each slot's new token (k_new, v_new (B, H_kv, d)) into its chain at
+    position ``seq_lens[b]``: pool page ``block_tables[b, pos // page]``,
+    row ``pos % page``. A token one past capacity, and every slot that
+    ``active`` (B,) masks, writes nothing and keeps its length. Rows are
+    cast through :func:`quantize_kv`. Returns ``(k_pages, v_pages,
+    seq_lens')``; the pools are written in place (the JAX scatter returns
+    new ones), so the returned pools are the given tensors. Block tables
+    must name disjoint pages across slots."""
+    page = k_pages.shape[2]
+    pages_max = block_tables.shape[1]
+    pos = seq_lens.to(torch.int64)
+    ok = pos < pages_max * page
+    if active is not None:
+        ok = ok & active
+    pidx = torch.gather(block_tables.to(torch.int64), 1,
+                        torch.clamp(pos // page, 0, pages_max - 1)[:, None]
+                        )[:, 0]
+    kn = quantize_kv(k_new.transpose(0, 1), k_pages.dtype)
+    vn = quantize_kv(v_new.transpose(0, 1), v_pages.dtype)
+    _write_rows(k_pages, v_pages, ok, pidx, pos % page, kn, vn)
+    return k_pages, v_pages, seq_lens + ok.to(seq_lens.dtype)
+
+
+def kv_cache_append_multi(k_pages, v_pages, block_tables, seq_lens, k_new,
+                          v_new, count=None, active=None):
+    """Up to T tokens per slot (k_new, v_new (B, T, H_kv, d)): token j of
+    slot b at position ``seq_lens[b] + j``, each token walking the block
+    table on its own (a span may cross pages). ``count`` (B,) keeps the
+    first ``count[b]`` tokens, ``active`` masks slots, writes past capacity
+    are dropped and the lengths capped. In place, as
+    :func:`kv_cache_append`; at ``kv_cache_dtype="off"`` the pools equal T
+    sequential appends."""
+    B, T = k_new.shape[:2]
+    page = k_pages.shape[2]
+    pages_max = block_tables.shape[1]
+    j = torch.arange(T, device=seq_lens.device)
+    pos = seq_lens.to(torch.int64)[:, None] + j[None, :]
+    ok = pos < pages_max * page
+    if count is not None:
+        ok = ok & (j[None, :] < count.to(torch.int64)[:, None])
+    if active is not None:
+        ok = ok & active[:, None]
+    pidx = torch.gather(block_tables.to(torch.int64), 1,
+                        torch.clamp(pos // page, 0, pages_max - 1))
+    kn = quantize_kv(k_new.movedim(2, 0), k_pages.dtype)
+    vn = quantize_kv(v_new.movedim(2, 0), v_pages.dtype)
+    _write_rows(k_pages, v_pages, ok, pidx, pos % page, kn, vn)
+    return k_pages, v_pages, seq_lens + ok.sum(1).to(seq_lens.dtype)
+
+
+def flash_prefill(q, k, v, k_pages, v_pages, block_tables, seq_lens, slot,
+                  live=None, scale: Optional[float] = None,
+                  prefill_mode: Optional[str] = None):
+    """One chunk of one slot's prompt into the paged cache: q (C, H, d), k
+    and v (C, H_kv, d) land in slot ``slot``'s chain from its current
+    length (the first ``live`` rows, default C), and the chunk's causal
+    attention runs over everything written so far in one span-C sweep
+    (kernel 30) where ``prefill_plan`` admits the chunk (page-granular),
+    else, or in mode "unpaged", through the gathered-chain reference,
+    counted per reason in ``accl_flash_prefill_fallback_total``. Rows past
+    ``live`` are padding. Returns ``(out (C, H, d), k_pages, v_pages,
+    seq_lens')``; the pools are written in place."""
+    C, H, d = q.shape
+    if k.shape != v.shape or tuple(k.shape) != (C, k.shape[1], d):
+        raise ValueError(
+            f"k/v chunk {tuple(k.shape)}/{tuple(v.shape)} incompatible "
+            f"with q {tuple(q.shape)}: need (C, H_kv, d)")
+    hkv = k.shape[1]
+    if H % hkv:
+        raise ValueError(f"q heads {H} not a multiple of kv heads {hkv}")
+    sc = scale if scale is not None else 1.0 / (d ** 0.5)
+    page = k_pages.shape[2]
+    pages_max = block_tables.shape[1]
+    slot = int(slot)
+    bt_row = block_tables[slot:slot + 1].to(torch.int32)
+    lens_row = seq_lens[slot:slot + 1]
+    count = None if live is None else torch.full(
+        (1,), int(live), dtype=torch.int64, device=seq_lens.device)
+    kp2, vp2, lens_row2 = kv_cache_append_multi(
+        k_pages, v_pages, bt_row, lens_row, k[None], v[None], count=count)
+    new_lens = seq_lens.clone()
+    new_lens[slot:slot + 1] = lens_row2
+    # the attention runs at the full chunk: rows past `live` are padding
+    attn_lens = lens_row.to(torch.int32) + C
+    plan, reason = None, "mode"
+    if _resolve_prefill(prefill_mode) == "paged":
+        plan, reason = prefill_plan(H, hkv, d, page, pages_max,
+                                    q.element_size(), chunk=C,
+                                    kv_itemsize=k_pages.element_size())
+    if plan is None:
+        _count_prefill_fallback(reason)
+        out = _decode_reference(q[None], kp2, vp2, bt_row, attn_lens, sc,
+                                span=C)[0]
+        return out, kp2, vp2, new_lens
+    g, gp = H // hkv, plan["gp"]
+    q4 = q.reshape(1, C, hkv, g, d).permute(0, 2, 3, 1, 4) \
+        .reshape(1, hkv, g * C, d)
+    q4 = torch.nn.functional.pad(q4, (0, 0, 0, gp - g * C))
+    out = _flash_decode_paged(q4, kp2, vp2, bt_row, attn_lens, sc, span=C)
+    out = out[:, :, :g * C].reshape(1, hkv, g, C, d)
+    return out.permute(0, 3, 1, 2, 4).reshape(C, H, d), kp2, vp2, new_lens

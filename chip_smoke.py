@@ -5,9 +5,9 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, in order;
 any failure exits non-zero and nothing is caught and skipped:
 
 1. build the kernels from ``accl_tpu_torch/csrc`` (``ring.cu``,
-   ``plugins.cu``, ``a2a.cu``, ``cmatmul.cu`` and ``flash.cu``, one
-   ``nvcc`` each, in parallel) and print the build time, the card and its
-   power limit;
+   ``plugins.cu``, ``a2a.cu``, ``cmatmul.cu``, ``flash.cu`` and
+   ``decode.cu``, one ``nvcc`` each, in parallel) and print the build
+   time, the card and its power limit;
 2. hold every kernel against its plain PyTorch version on the card, bit
    for bit (``torch.equal``, or the raw bits where NaN can occur): the four
    ring kernels (P in {2, 8}, a ragged length, SUM and MAX, f32 / i32 /
@@ -37,8 +37,12 @@ any failure exits non-zero and nothing is caught and skipped:
    runs and between the fused and the two-pass arm; the entry points under
    both backward modes, with and without an lse cotangent, at S 1024 and
    at S 16384, where the JAX backward policy sends the fused mode to the
-   two-pass pair), then time each kernel, its plain version and a one-call
-   PyTorch yardstick at the shapes of the main path (for attention
+   two-pass pair), and the two paged decode kernels at K-EXAONE-236B's
+   global-attention width (f32, bf16 and int8 pools, int8 with per-page
+   scales, lengths 0, one page and full capacity, prefill chunks from 0,
+   mid-chain and to full capacity: within 1e-5 of the largest magnitude),
+   then time each kernel, its plain version and a one-call PyTorch
+   yardstick at the shapes of the main path (for attention
    ``scaled_dot_product_attention``, timed only);
 3. the main path, each part with every launch counter set to 0 just
    before it and read just after:
@@ -107,6 +111,14 @@ any failure exits non-zero and nothing is caught and skipped:
       two-pass arm through ``ACCLConfig.flash_bwd`` and at 16384 tokens
       (flash_bwd_kv_kernel and flash_bwd_q_kernel), and ring and zigzag
       ring attention at (8, 1024, 96), both arms, forward and backward;
+   j. a serving session at K-EXAONE-236B's global-attention width (hidden
+      6144, 64 query heads over 8 KV heads of 128), tp 8, f32, 32 slots of
+      8192 tokens in pages of 64: prompts of 512-4096 tokens prefilled in
+      the plan's 448-token chunks, 32 decode steps, two slots retired and
+      one admitted mid-run, paged and unpaged arms (flash_decode_kernel once
+      a decode step, flash_decode_span_kernel once a chunk, the unpaged arm
+      neither), the arms within 1e-5 of scale and two slots against a
+      float64 attention block over their whole sequences; p50 and tokens/s;
 4. print the ``kernels`` line, the card line and, last, the device line.
 
 Exits 2 without printing a result when no CUDA device is visible.
@@ -119,6 +131,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 GIB = 1 << 30
 MIB = 1 << 20
@@ -1516,6 +1529,193 @@ def measure_flash_kernels(gen) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2: the paged decode kernels (rows 29-30)
+# ---------------------------------------------------------------------------
+
+#: K-EXAONE-236B-A23B's global-attention layers (LG AI Research,
+#: ``LGAI-EXAONE/K-EXAONE-236B-A23B`` config.json): hidden 6144, 64 query
+#: heads over 8 KV heads of 128; tp 8 (one KV head, eight query heads a
+#: rank); a serving batch of 32 slots of 8192 tokens in pages of 64
+EXAONE = {"d_model": 6144, "H": 64, "hkv": 8, "hd": 128, "tp": 8,
+          "slots": 32, "page": 64, "pmax": 128}
+#: the tolerance of the decode kernels against their plain version, and of
+#: phase 3j's arms against each other and float64: f32 sums in another
+#: order, relative to the output's largest magnitude
+DECODE_REL = 1e-5
+#: the same with a bf16 pool, where P is rounded to bf16 inside the sweep:
+#: a score one f32 ulp apart (the kernel's and cuBLAS's sums) can move p
+#: across a bf16 rounding boundary, 2^-9 of p (1.4e-5 of scale seen at
+#: this width)
+DECODE_BF16_REL = 1e-3
+
+
+def decode_pools(gen, slots: int, pool: str):
+    """Random f32 K and V pools at EXAONE's width for ``slots`` slots, in
+    the at-rest dtype ``pool`` ("f32", "bf16", "int8" or "int8pp", int8
+    with per-(head, page) scales: K's grid for both), a shuffled disjoint
+    block table, and the scales."""
+    import torch
+    from accl_tpu_torch.ops import flash as fl
+    E = EXAONE
+    shape = (E["hkv"], slots * E["pmax"], E["page"], E["hd"])
+    kf, vf = (torch.randn(shape, generator=gen, device="cuda")
+              for _ in range(2))
+    scales = None
+    if pool == "int8pp":
+        kp, scales = fl.quantize_kv_paged(kf, "int8")
+        vp = torch.clamp(torch.round(vf * scales[:, :, None, None]), -127,
+                         127).to(torch.int8)
+    else:
+        dt = {"f32": torch.float32, "bf16": torch.bfloat16,
+              "int8": torch.int8}[pool]
+        kp, vp = (fl.quantize_kv(t, dt, "off") for t in (kf, vf))
+    bt = torch.randperm(slots * E["pmax"], generator=gen,
+                        device="cuda").to(torch.int32).reshape(
+                            slots, E["pmax"])
+    return kp, vp, bt, scales
+
+
+def check_decode_kernels(gen) -> None:
+    """Rows 29-30 against their plain version at EXAONE's width (64 query
+    heads over 8 KV heads, d 128, page 64, 128 pages a slot) over the CPU
+    test's grid: f32, bf16 and int8 pools, int8 with per-page scales; the
+    decode kernel over 4 slots of lengths 0, one page, full capacity and a
+    ragged 61% of it, the span kernel over one prefill chunk of 448 rows
+    from 0, from half the capacity and ending at full capacity; within
+    :data:`DECODE_REL` of the largest magnitude (bf16 pools
+    :data:`DECODE_BF16_REL`), a slot of length 0 exact zeros."""
+    import torch
+    from accl_tpu_torch.ops import flash as fl
+    E = EXAONE
+    g, cap, C = E["H"] // E["hkv"], E["pmax"] * E["page"], 448
+    worst = {}
+    for pool in ("f32", "bf16", "int8", "int8pp"):
+        kp, vp, bt, scales = decode_pools(gen, 4, pool)
+        q4 = torch.randn((4, E["hkv"], g, E["hd"]), generator=gen,
+                         device="cuda")
+        lens = torch.tensor([0, E["page"], cap, cap * 61 // 100],
+                            dtype=torch.int32, device="cuda")
+        got = fl.paged_decode(q4, kp, vp, bt, lens, E["hd"] ** -0.5, scales)
+        if not bool((got[0] == 0).all()):
+            fail(f"flash_decode_kernel {pool}: a slot of length 0 is not 0")
+        want = fl.plain_paged_decode(q4, kp, vp, bt, lens, E["hd"] ** -0.5,
+                                     1, scales)
+        rel = DECODE_BF16_REL if pool == "bf16" else DECODE_REL
+        worst[f"decode {pool}"] = near(f"flash_decode_kernel {pool}", got,
+                                       want, rel)
+        q4 = torch.randn((1, E["hkv"], g * C, E["hd"]), generator=gen,
+                         device="cuda")
+        for end in (C, cap // 2 + C, cap):
+            lens = torch.tensor([end], dtype=torch.int32, device="cuda")
+            args = (q4, kp, vp, bt[:1].contiguous(), lens, E["hd"] ** -0.5,
+                    C, scales)
+            worst[f"span {pool} to {end}"] = near(
+                f"flash_decode_span_kernel {pool} to {end}",
+                fl.paged_decode_span(*args), fl.plain_paged_decode(*args),
+                rel)
+        del kp, vp, q4, got, want
+    torch.cuda.empty_cache()
+    log(f"  decode kernels at K-EXAONE-236B's width: worst error / max per "
+        f"case {json.dumps(worst)}")
+
+
+def decode_library_ms(q, kp, vp, bt, lens, span: int) -> float:
+    """One ``scaled_dot_product_attention`` call (``enable_gqa``) over the
+    chains gathered before the timer starts, with the length (span 1) or
+    causal-horizon mask: the yardstick, excluding the gather; timed only."""
+    import torch
+    import torch.nn.functional as F
+    from accl_tpu_torch.ops import flash as fl
+    B, H = q.shape[0], q.shape[1]
+    n = int(lens.max())
+    k = fl._gather_pages(kp, bt)[:, :, :n].contiguous()
+    v = fl._gather_pages(vp, bt)[:, :, :n].contiguous()
+    cols = torch.arange(n, device="cuda")
+    rows = torch.arange(q.shape[2], device="cuda")
+    horizon = lens.long()[:, None] - span + 1 + rows[None, :]   # (B, rows)
+    mask = (cols[None, None, :] < horizon[:, :, None])[:, None]
+    with torch.no_grad():
+        return time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=q.shape[-1] ** -0.5,
+            enable_gqa=True), 5)
+
+
+def measure_decode_kernels(gen) -> dict:
+    """Rows 29-30 at phase 3j's shapes, f32: the decode kernel over 32
+    slots at lengths staggered around 3/4 of the 8192-token capacity
+    (``bench_flash_decode``'s ``3 cap / 4 - i page / 2``), the span kernel
+    over one 448-row prefill chunk (the plan's own pick) starting half the
+    capacity, 4096 tokens, into a slot. Kernel, plain version and SDPA (see
+    :func:`decode_library_ms`). Bounds: row 29 the live pages of every
+    chain (whole pages) plus q and out over 3.35 TB/s; row 30 the larger of
+    those bytes and its useful flops, 4 d per (query row, attended
+    position) and KV head, over the CUDA cores' f32 rate (TF32 tensor cores
+    beside)."""
+    import torch
+    from accl_tpu_torch.ops import flash as fl
+    E = EXAONE
+    B, hkv, d, page = E["slots"], E["hkv"], E["hd"], E["page"]
+    g, cap = E["H"] // hkv, E["pmax"] * page
+    plan, _ = fl.prefill_plan(g, 1, d, page, E["pmax"], 4)
+    C = plan["chunk"]
+    kp, vp, bt, _ = decode_pools(gen, B, "f32")
+    sc = d ** -0.5
+    peak = f32_peak_flops()
+    res = {}
+    lens = torch.tensor([3 * cap // 4 - i * page // 2 for i in range(B)],
+                        dtype=torch.int32, device="cuda")
+    dplan, _ = fl.decode_plan(B, E["H"], hkv, d, page, E["pmax"], 4)
+    q4 = torch.randn((B, hkv, dplan["gp"], d), generator=gen, device="cuda")
+    pages = sum(-(-int(x) // page) for x in lens.tolist())
+    io = pages * page * d * 4 * 2 * hkv + 2 * q4.numel() * 4
+    qs = q4[:, :, :g].reshape(B, g * hkv, 1, d)
+    got, want = (fl.paged_decode(q4, kp, vp, bt, lens, sc),
+                 fl.plain_paged_decode(q4, kp, vp, bt, lens, sc))
+    res["flash_decode_kernel"] = {
+        "shape": [list(q4.shape), list(kp.shape)],
+        "max_abs_err": (got - want).abs().max().item(),
+        "ms": time_ms(lambda: fl.paged_decode(q4, kp, vp, bt, lens, sc), 10),
+        "plain_ms": time_ms(lambda: fl.plain_paged_decode(
+            q4, kp, vp, bt, lens, sc), 3),
+        "library_ms": decode_library_ms(qs, kp, vp, bt, lens, 1),
+        "bound_ms": io / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "live_pages": pages}
+    del got, want, qs
+    # one chunk of the plan's size, half the capacity (4096 tokens) into
+    # slot 0
+    start = cap // 2
+    lens1 = torch.tensor([start + C], dtype=torch.int32, device="cuda")
+    bt1 = bt[:1].contiguous()
+    q4 = torch.randn((1, hkv, plan["gp"], d), generator=gen, device="cuda")
+    horizon = sum(start + 1 + r % C for r in range(g * C))
+    flops = 4 * horizon * d * hkv
+    io = (-(-(start + C) // page) * page * d * 4 * 2 * hkv
+          + 2 * q4.numel() * 4)
+    by_bytes, by_ops = io / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    qs = q4.reshape(hkv, g, C, d).reshape(1, hkv * g, C, d)
+    args = (q4, kp, vp, bt1, lens1, sc, C)
+    got, want = fl.paged_decode_span(*args), fl.plain_paged_decode(*args)
+    res["flash_decode_span_kernel"] = {
+        "shape": [[1, hkv, plan["gp"], d], list(kp.shape)],
+        "max_abs_err": (got - want).abs().max().item(),
+        "ms": time_ms(lambda: fl.paged_decode_span(*args), 10),
+        "plain_ms": time_ms(lambda: fl.plain_paged_decode(*args), 3),
+        "library_ms": decode_library_ms(qs, kp, vp, bt1, lens1, C),
+        "bound_ms": max(by_bytes, by_ops),
+        "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+        "tensor_core_bound_ms": max(by_bytes, flops / TF32_TC_FLOPS * 1e3),
+        "useful_gflop": flops / 1e9}
+    for name, r in res.items():
+        log(f"  {name} {r['shape']} f32: kernel {r['ms']!r} ms, plain "
+            f"{r['plain_ms']!r} ms, SDPA (gather excluded) "
+            f"{r['library_ms']!r} ms, bound {r['bound_ms']!r} ms "
+            f"({r['bound_by']}), max_abs_err {r['max_abs_err']!r}")
+    del kp, vp, q4, got, want, qs, args
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
@@ -1548,7 +1748,9 @@ def wrappers() -> dict:
             "flash_fwd_kernel": fl.flash_fwd,
             "flash_bwd_fused_kernel": fl.flash_bwd_fused,
             "flash_bwd_kv_kernel": fl.flash_bwd_kv,
-            "flash_bwd_q_kernel": fl.flash_bwd_q}
+            "flash_bwd_q_kernel": fl.flash_bwd_q,
+            "flash_decode_kernel": fl.paged_decode,
+            "flash_decode_span_kernel": fl.paged_decode_span}
 
 
 def counts() -> dict:
@@ -2661,6 +2863,231 @@ def context_paths(gen, kernel_ms: dict) -> dict:
     return counts()
 
 
+def serving_f64(p, xs, sc: float):
+    """Float64 attention block of one slot's whole sequence: x (S, d_model)
+    -> causal GQA attention over its own projections -> (S, d_model), from
+    the rank-layout params."""
+    import torch
+    from accl_tpu_torch.models import decode as dm
+    wq, wk, wv, wo = (w.double() for w in dm._dense(p))
+    E = EXAONE
+    x = xs.double()
+    S, hd = x.shape[0], E["hd"]
+    q = (x @ wq).reshape(S, E["H"], hd).transpose(0, 1)
+    k = (x @ wk).reshape(S, E["hkv"], hd).transpose(0, 1)
+    v = (x @ wv).reshape(S, E["hkv"], hd).transpose(0, 1)
+    g = E["H"] // E["hkv"]
+    k, v = (t.repeat_interleave(g, dim=0) for t in (k, v))
+    s = torch.matmul(q, k.transpose(-1, -2)) * sc
+    mask = torch.ones((S, S), dtype=torch.bool, device=x.device).tril()
+    att = torch.matmul(torch.softmax(s.masked_fill(~mask, float("-inf")),
+                                     -1), v)
+    return att.transpose(0, 1).reshape(S, E["H"] * hd) @ wo
+
+
+def step_breakdown(p, st, gen, C: int, reasons: dict) -> dict:
+    """Device ms of the pieces of one decode step (all 32 slots) and one
+    prefill chunk (C rows into slot 0) of the paged arm, each timed on its
+    own with CUDA events: the projections on the path the engage reasons
+    pick, the cache append, the attention and the output projection. The
+    pieces write rows past the session's lengths, which nothing reads."""
+    import torch
+    from accl_tpu_torch.models import decode as dm
+    from accl_tpu_torch.ops import flash as fl
+    tp, h_l, hkv_l, hd = dm._geometry(p, st)
+    out = {}
+    for what, rows in (("decode step", st.seq_lens.shape[0]),
+                       ("prefill chunk", C)):
+        fused = reasons[what.split()[0]]["qkv"] is None
+        x = torch.randn((rows, EXAONE["d_model"]), generator=gen,
+                        device="cuda")
+        qkv = dm._project_qkv(p, x, fused, None, None)
+        q, k, v = dm._split_heads(qkv, h_l, hkv_l, hd)
+        t = {"qkv projection": time_ms(
+            lambda: dm._project_qkv(p, x, fused, None, None), 3)}
+        if rows == C:
+            t["append + span kernel"] = time_ms(lambda: fl.flash_prefill(
+                q, k, v, st.k_pages, st.v_pages, st.block_tables,
+                st.seq_lens, 0), 3)
+            attn = fl.flash_prefill(q, k, v, st.k_pages, st.v_pages,
+                                    st.block_tables, st.seq_lens, 0)[0]
+        else:
+            t["append"] = time_ms(lambda: fl.kv_cache_append(
+                st.k_pages, st.v_pages, st.block_tables, st.seq_lens, k, v,
+                active=st.active), 3)
+            t["decode kernel"] = time_ms(lambda: fl.flash_decode(
+                q, st.k_pages, st.v_pages, st.block_tables, st.seq_lens), 3)
+            attn = fl.flash_decode(q, st.k_pages, st.v_pages,
+                                   st.block_tables, st.seq_lens)
+        t["output projection"] = time_ms(
+            lambda: dm._project_out(p, attn, x, fused, None, None), 3)
+        out[what] = t
+    return out
+
+
+def serving_paths(gen, kernel_ms: dict) -> dict:
+    """Phase 3j: a serving session at K-EXAONE-236B's global-attention
+    width (:data:`EXAONE`), tp 8 ranks on the card, f32, under an ``ACCL``
+    session's registers: 32 slots of 8192 tokens in pages of 64 (2.1 GB of
+    K and V pools an arm); every slot admitted, prompts of 512 to 4096
+    tokens prefilled in the plan's chunks (448; most end in a partial
+    chunk), 32 decode steps over every slot, slots 5 and 9 retired after
+    step 16 and slot 5 admitted again. Two arms on their own pools: the
+    paged one (``flash_decode_kernel`` exactly once a decode step,
+    ``flash_decode_span_kernel`` once a chunk) and ``decode_mode`` /
+    ``prefill_mode`` "unpaged" (neither kernel); their outputs within
+    :data:`DECODE_REL` of scale, and on slots 0 and 31 the paged arm's
+    prefill and decode outputs against a float64 attention block over each
+    slot's whole sequence. p50 of a decode step and of a prefill chunk,
+    tokens/s, and the projection path (fused or psum, with its engage
+    reasons). Returns the launch counts of this part."""
+    import torch
+    from accl_tpu_torch import ACCL, Communicator
+    from accl_tpu_torch.models import decode as dm
+    from accl_tpu_torch.ops import flash as fl
+    E = EXAONE
+    d, tp, slots, page = E["d_model"], E["tp"], E["slots"], E["page"]
+    acc = ACCL(world=tp, device="cuda")
+    comm = Communicator(tp, "cuda")
+    params = dm.init_decode_params(gen, d, E["H"], E["hkv"], E["hd"], tp)
+    plan, _ = fl.prefill_plan(E["H"] // tp, E["hkv"] // tp, E["hd"], page,
+                              E["pmax"], 4)
+    C = plan["chunk"]
+    reasons = {
+        "decode": dm.decode_engage_reasons(slots, d, E["H"], E["hkv"],
+                                           E["hd"], tp, page=page,
+                                           pages_max=E["pmax"]),
+        "prefill": dm.decode_engage_reasons(C, d, E["H"], E["hkv"], E["hd"],
+                                            tp, page=page,
+                                            pages_max=E["pmax"])}
+    arms = {}
+    for arm, mode in (("paged", None), ("unpaged", "unpaged")):
+        st = dm.init_decode_state(slots, E["pmax"], page, E["hkv"],
+                                  E["hd"], device="cuda")
+        for s in range(slots):
+            st = dm.admit(st, s)
+        arms[arm] = {"state": st,
+                     "pre": dm.build_prefill_step(comm, prefill_mode=mode),
+                     "dec": dm.build_decode_step(comm, decode_mode=mode),
+                     "t_pre": [], "t_dec": []}
+    ref_slots = (0, slots - 1)
+    seqs = {s: [] for s in ref_slots}          # each slot's hidden states
+    outs = {s: [] for s in ref_slots}          # the paged arm's outputs
+    prompt = [512 + (4096 - 512) * s // (slots - 1) for s in range(slots)]
+    worst = {"prefill paged - unpaged": 0.0, "decode paged - unpaged": 0.0}
+    per_chunk, per_step = [], []
+    reset_counts()
+
+    def run(arm, fn, *a, **kw):
+        """One step of an arm: its output, state, host seconds and the
+        decode kernels it launched."""
+        r = arms[arm]
+        c0 = (fl.paged_decode.launches, fl.paged_decode_span.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, r["state"] = fn(params, r["state"], *a, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        return y, dt, (fl.paged_decode.launches - c0[0],
+                       fl.paged_decode_span.launches - c0[1])
+
+    for s in range(slots):
+        for c0 in range(0, prompt[s], C):
+            live = min(C, prompt[s] - c0)
+            x = torch.zeros((C, d), device="cuda")
+            x[:live] = torch.randn((live, d), generator=gen, device="cuda")
+            ys = {}
+            for arm in arms:
+                ys[arm], dt, n = run(arm, arms[arm]["pre"], x, s, live=live)
+                arms[arm]["t_pre"].append(dt)
+                want = (0, 1) if arm == "paged" else (0, 0)
+                if n != want:
+                    fail(f"prefill chunk of slot {s} ({arm}) launched "
+                         f"{n} decode kernels, not {want}")
+            worst["prefill paged - unpaged"] = max(
+                worst["prefill paged - unpaged"],
+                near(f"prefill slot {s} chunk {c0 // C} paged - unpaged",
+                     ys["paged"][:live], ys["unpaged"][:live], DECODE_REL))
+            per_chunk.append(live)
+            if s in seqs:
+                seqs[s].append(x[:live])
+                outs[s].append(ys["paged"][:live])
+    for step in range(32):
+        if step == 16:
+            for arm in arms:
+                st = dm.retire(dm.retire(arms[arm]["state"], 5), 9)
+                arms[arm]["state"] = dm.admit(st, 5)
+        x = torch.randn((slots, d), generator=gen, device="cuda")
+        ys = {}
+        for arm in arms:
+            ys[arm], dt, n = run(arm, arms[arm]["dec"], x)
+            arms[arm]["t_dec"].append(dt)
+            want = (1, 0) if arm == "paged" else (0, 0)
+            if n != want:
+                fail(f"decode step {step} ({arm}) launched {n} decode "
+                     f"kernels, not {want}")
+        worst["decode paged - unpaged"] = max(
+            worst["decode paged - unpaged"],
+            near(f"decode step {step} paged - unpaged", ys["paged"],
+                 ys["unpaged"], DECODE_REL))
+        if step >= 16 and not bool((ys["paged"][9] == 0).all()):
+            fail("a retired slot answered non-zero")
+        per_step.append(int(arms["paged"]["state"].active.sum()))
+        for s in ref_slots:
+            seqs[s].append(x[s:s + 1])
+            outs[s].append(ys["paged"][s:s + 1])
+    launched = counts()
+    lens = arms["paged"]["state"].seq_lens.tolist()
+    for arm in arms:
+        if arms[arm]["state"].seq_lens.tolist() != lens:
+            fail(f"the {arm} arm's lengths differ")
+    cap = E["pmax"] * page
+    want_lens = [min(prompt[s] + 32, cap) for s in range(slots)]
+    want_lens[5], want_lens[9] = 16, 0
+    if lens != want_lens:
+        fail(f"lengths after the session {lens} != {want_lens}")
+    for s in ref_slots:
+        y64 = serving_f64(params, torch.cat(seqs[s]), E["hd"] ** -0.5)
+        worst[f"slot {s} paged - f64"] = near(
+            f"slot {s} paged - float64", torch.cat(outs[s]), y64,
+            DECODE_REL)
+        del y64
+    t_pre = statistics.median(arms["paged"]["t_pre"])
+    t_dec = statistics.median(arms["paged"]["t_dec"])
+    fused = {k: v for k, v in launched.items()
+             if k in ("agmm_kernel", "mmrs_kernel") and v}
+    report = {
+        "chunk": C, "chunks": len(per_chunk),
+        "prompt_tokens": sum(per_chunk), "decode_steps": 32,
+        "p50_ms": {"prefill chunk paged": t_pre * 1e3,
+                   "prefill chunk unpaged": statistics.median(
+                       arms["unpaged"]["t_pre"]) * 1e3,
+                   "decode step paged": t_dec * 1e3,
+                   "decode step unpaged": statistics.median(
+                       arms["unpaged"]["t_dec"]) * 1e3},
+        "tokens_per_s": {"prefill paged": sum(per_chunk) / sum(
+                             arms["paged"]["t_pre"]),
+                         "decode paged": statistics.median(per_step) / t_dec},
+        "projections": {"decode": "fused" if reasons["decode"]["qkv"] is None
+                        and reasons["decode"]["wo"] is None else "psum",
+                        "prefill": "fused" if reasons["prefill"]["qkv"] is None
+                        and reasons["prefill"]["wo"] is None else "psum"},
+        "engage_reasons": reasons, "fused_kernel_launches": fused,
+        "decode_kernel_launches": {
+            k: launched[k] for k in ("flash_decode_kernel",
+                                     "flash_decode_span_kernel")},
+        "errors": worst}
+    report["breakdown_ms"] = step_breakdown(params, arms["paged"]["state"],
+                                            gen, C, reasons)
+    log(f"serving, K-EXAONE-236B global attention (64 x 128 over 8 KV "
+        f"heads), tp {tp}, {slots} slots, f32: {json.dumps(report)}")
+    log(f"decode kernels at these shapes (phase 2): {json.dumps(kernel_ms)}")
+    del arms, params, seqs, outs
+    acc.deinit()
+    torch.cuda.empty_cache()
+    return launched
+
+
 # ---------------------------------------------------------------------------
 
 REPLACES = {
@@ -2685,6 +3112,8 @@ REPLACES = {
     "flash_bwd_fused_kernel": "accl_tpu/ops/flash.py:724",
     "flash_bwd_kv_kernel": "accl_tpu/ops/flash.py:612",
     "flash_bwd_q_kernel": "accl_tpu/ops/flash.py:658",
+    "flash_decode_kernel": "accl_tpu/ops/flash.py:1590",
+    "flash_decode_span_kernel": "accl_tpu/ops/flash.py:1661",
 }
 #: the streaming variant each kernel replaces as well
 ALSO_REPLACES = {
@@ -2702,7 +3131,9 @@ SOURCE = {"ring_rs_kernel": "ring.cu", "ring_ag_kernel": "ring.cu",
           "a2a_wgrad_kernel": "a2a.cu", "flash_fwd_kernel": "flash.cu",
           "flash_bwd_fused_kernel": "flash.cu",
           "flash_bwd_kv_kernel": "flash.cu",
-          "flash_bwd_q_kernel": "flash.cu"}
+          "flash_bwd_q_kernel": "flash.cu",
+          "flash_decode_kernel": "decode.cu",
+          "flash_decode_span_kernel": "decode.cu"}
 #: the part of phase 3 whose launch counts each kernel's entry reports
 PART = {"ring_rs_kernel": "allreduce", "ring_ag_kernel": "allreduce",
         "chunked_rs_kernel": "allreduce", "chunked_ag_kernel": "allreduce",
@@ -2714,7 +3145,8 @@ PART = {"ring_rs_kernel": "allreduce", "ring_ag_kernel": "allreduce",
         "mmrs_kernel": "tp_mlp", "wgrad_kernel": "tp_train",
         "a2a_wgrad_kernel": "moe_train", "flash_fwd_kernel": "context",
         "flash_bwd_fused_kernel": "context", "flash_bwd_kv_kernel": "context",
-        "flash_bwd_q_kernel": "context"}
+        "flash_bwd_q_kernel": "context", "flash_decode_kernel": "serving",
+        "flash_decode_span_kernel": "serving"}
 
 
 def main() -> int:
@@ -2748,6 +3180,7 @@ def main() -> int:
     check_cmatmul_kernels(gen)
     check_wgrad_kernel(gen)
     check_flash_kernels(gen)
+    check_decode_kernels(gen)
     total = torch.cuda.get_device_properties(0).total_memory
     big_ok = total >= 60 * GIB
     meas = measure_kernels(gen, big_ok)
@@ -2757,6 +3190,7 @@ def main() -> int:
     meas.update(measure_moe_kernels(gen))
     meas.update(measure_cmatmul_kernels(gen))
     meas.update(measure_flash_kernels(gen))
+    meas.update(measure_decode_kernels(gen))
 
     parts = {"allreduce": main_path(gen), "slice2": slice2_paths(gen),
              "rooted": rooted_paths(gen, big_ok),
@@ -2772,7 +3206,10 @@ def main() -> int:
                  k: meas[k]["ms"] for k in ("a2a_mm_kernel", "mm_a2a_kernel",
                                             "a2a_wgrad_kernel")}),
              "context": context_paths(gen, {
-                 k: meas[k]["ms"] for k in REPLACES if "flash" in k})}
+                 k: meas[k]["ms"] for k in REPLACES if "flash_bwd" in k
+                 or k == "flash_fwd_kernel"}),
+             "serving": serving_paths(gen, {
+                 k: meas[k]["ms"] for k in REPLACES if "decode" in k})}
     launches = {k: parts[PART[k]][k] for k in REPLACES}
     for k, v in launches.items():
         if v <= 0:
@@ -2788,7 +3225,8 @@ def main() -> int:
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
             "shape": m["shape"]}
-        for extra in ("ring_bound_ms", "tensor_core_bound_ms"):
+        for extra in ("ring_bound_ms", "tensor_core_bound_ms",
+                      "live_pages", "useful_gflop"):
             if extra in m:
                 entry[extra] = m[extra]
         if k in ALSO_REPLACES:

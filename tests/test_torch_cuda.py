@@ -1,12 +1,14 @@
 """The port's CUDA kernels (the ring kernels, the rooted relays, the
 all-to-all, the plugin lanes, the fused MoE dispatch, combine and a2a-wgrad,
-the collective matmuls with their gathered wgrad, and the four flash
-attention kernels) against their plain PyTorch versions on the card:
+the collective matmuls with their gathered wgrad, the four flash
+attention kernels and the two paged decode kernels) against their plain
+PyTorch versions on the card:
 bit-equal (``torch.equal``, or the raw bits where NaN can occur; the matmul
 kernels on integer-valued operands), the flash kernels within 1e-5 (f32) or
 1e-2 (bf16) of each tensor's largest magnitude, their backward bit-equal
-across two runs and between the fused and the two-pass arm; the
-context-parallel layers on the card against the CPU. This test needs an NVIDIA GPU with
+across two runs and between the fused and the two-pass arm, the decode
+kernels within 1e-5; the context-parallel layers and the TP decode and
+prefill steps on the card against the CPU. This test needs an NVIDIA GPU with
 ``nvcc`` (the kernels build at first use); where no card is visible it
 skips. On the card, where JAX is not installed, skip the suite's conftest:
 ``pytest --noconftest tests/test_torch_cuda.py -m cuda``.
@@ -76,6 +78,8 @@ def test_ring_kernels_on_card(gen, monkeypatch):
     _cmatmul_kernels(gen)
     _flash_kernels(gen)
     _context_on_card(gen)
+    _decode_kernels(gen)
+    _serving_on_card(gen)
     _accl_on_card(gen, monkeypatch)
 
 
@@ -619,3 +623,96 @@ def _context_on_card(gen):
             for what, a, b in zip(("out", "dq", "dk", "dv"), res["cuda"],
                                   res["cpu"]):
                 _near(f"{name} use_flash={flash} {what}", a, b, 1e-5)
+
+
+def _decode_kernels(gen):
+    """flash_decode_kernel and flash_decode_span_kernel against their plain
+    version: d 128, g 1, 6 and 8, pages 8, 32, 64 and 96 (two steps a
+    page), f32, bf16 and int8 pools (int8 with per-page scales too), q f32
+    and bf16, lengths 0, one page and full capacity, spans 1, 16 and 64;
+    within 1e-5 of the largest magnitude (f32 sums in another order), and
+    a slot of length 0 gives zeros. Then the entry points launch them."""
+    from accl_tpu_torch.ops import flash as fl
+    cases = [(3, 2, 2, 8, 2, torch.float32, torch.float32, 1, False),
+             (3, 6, 1, 8, 2, torch.bfloat16, torch.float32, 1, False),
+             (3, 16, 2, 32, 2, torch.int8, torch.float32, 1, False),
+             (3, 8, 1, 32, 2, torch.int8, torch.float32, 1, True),
+             (3, 8, 1, 96, 2, torch.float32, torch.bfloat16, 1, False),
+             (1, 6, 1, 8, 4, torch.bfloat16, torch.float32, 16, False),
+             (1, 16, 2, 64, 3, torch.float32, torch.float32, 64, False),
+             (1, 8, 1, 32, 4, torch.int8, torch.float32, 64, True)]
+    for B, H, hkv, page, pmax, kvd, qd, span, per_page in cases:
+        case = (B, H, hkv, page, pmax, kvd, qd, span, per_page)
+        g, n_pages = H // hkv, B * pmax
+        gp = -(-g * span // 8) * 8
+        q4 = _make((B, hkv, gp, 128), qd, gen)
+        kf, vf = (_make((hkv, n_pages, page, 128), torch.float32, gen)
+                  for _ in range(2))
+        scales = None
+        if kvd == torch.int8 and per_page:
+            kp, scales = fl.quantize_kv_paged(kf, "int8")
+            vp = fl.quantize_kv(vf, torch.int8)
+        else:
+            kp, vp = fl.quantize_kv(kf, kvd, "off"), fl.quantize_kv(
+                vf, kvd, "off")
+        bt = torch.randperm(n_pages, generator=gen, device="cuda").to(
+            torch.int32).reshape(B, pmax)
+        cap = pmax * page
+        lens = torch.tensor([0, page, cap] if span == 1 else [cap - 5],
+                            dtype=torch.int32, device="cuda")
+        if span == 1:
+            got = fl.paged_decode(q4, kp, vp, bt, lens, 0.1, scales)
+            assert torch.all(got[0] == 0), case
+        else:
+            got = fl.paged_decode_span(q4, kp, vp, bt, lens, 0.1, span,
+                                       scales)
+        want = fl.plain_paged_decode(q4, kp, vp, bt, lens, 0.1, span, scales)
+        _near(f"decode {case}", got.float(), want.float(),
+              1e-5 if qd == torch.float32 else 1e-2)
+    launched = (fl.paged_decode.launches, fl.paged_decode_span.launches)
+    q = _make((3, 8, 128), torch.float32, gen)
+    kp = _make((2, 6, 32, 128), torch.float32, gen)
+    bt = torch.arange(6, dtype=torch.int32, device="cuda").reshape(3, 2)
+    lens = torch.tensor([0, 5, 64], dtype=torch.int32, device="cuda")
+    out = fl.flash_decode(q, kp, kp, bt, lens)
+    _near("flash_decode", out, fl._decode_reference(q, kp, kp, bt, lens,
+                                                    128 ** -0.5), 1e-5)
+    qc = _make((32, 8, 128), torch.float32, gen)
+    kc = _make((32, 2, 128), torch.float32, gen)
+    fl.flash_prefill(qc, kc, kc, kp.clone(), kp.clone(), bt, lens, 1,
+                     live=20)
+    assert (fl.paged_decode.launches - launched[0],
+            fl.paged_decode_span.launches - launched[1]) == (1, 1)
+    torch.cuda.synchronize()
+
+
+def _serving_on_card(gen):
+    """The TP decode and prefill steps on the card against the CPU, fused
+    and baseline: two prefill chunks and two decode steps at tp 2."""
+    import accl_tpu_torch as at
+    from accl_tpu_torch.models import decode as dm
+    tp, d_model, H, hkv, page = 2, 256, 4, 2, 8
+    params = dm.init_decode_params(gen, d_model, H, hkv, 128, tp)
+    xs = [torch.randn(s, generator=gen, device="cuda")
+          for s in ((16, d_model), (16, d_model), (4, d_model),
+                    (4, d_model))]
+    for overlap in (True, False):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            comm = at.Communicator(tp, dev)
+            p = dm.DecodeParams(*(w.to(dev) for w in params))
+            st = dm.admit(dm.admit(dm.init_decode_state(
+                4, 4, page, hkv, 128, device=dev), 0), 3)
+            pre = dm.build_prefill_step(comm, overlap=overlap)
+            dec = dm.build_decode_step(comm, overlap=overlap)
+            ys = []
+            for x, live in zip(xs[:2], (16, 9)):
+                y, st = pre(p, st, x.to(dev), 0, live=live)
+                ys.append(y[:live])
+            for x in xs[2:]:
+                y, st = dec(p, st, x.to(dev))
+                ys.append(y)
+            res[dev] = [t.cpu() for t in (*ys, st.k_pages, st.seq_lens)]
+        for n, (a, b) in enumerate(zip(res["cuda"], res["cpu"])):
+            _near(f"serving overlap={overlap} output {n}", a.float(),
+                  b.float(), 1e-5)

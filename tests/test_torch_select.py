@@ -28,7 +28,9 @@ SIZES = [1 << e for e in range(2, 31)] + [3, 1000, 8191, 8192, 1048575]
 
 def test_select_parity_sweep():
     """Every op and size at worlds 2, 3 and 8, on the intra-node tier, the
-    emulator rung and DCN; then the AUTO build sweep."""
+    emulator rung and DCN; then the AUTO build sweep, and the selection
+    behaviour: non-default registers, the world-8 main-path families,
+    explicit requests and fallbacks, unported families."""
     for world in (2, 3, 8):
         jcomm = JComm(jax.devices()[:world])
         tcomm = at.Communicator(world, "cpu")
@@ -45,6 +47,10 @@ def test_select_parity_sweep():
                                                 transport)
     _cmatmul_select_parity()
     _auto_builds_everywhere()
+    _select_parity_non_default_registers()
+    _main_path_families_at_world8()
+    _explicit_request_and_fallback()
+    _unported_families_raise()
 
 
 CMATMUL_OPS = ("allgather_matmul", "matmul_reduce_scatter",
@@ -217,10 +223,3 @@ def _unported_families_raise():
                                             f32)), algo
     with pytest.raises(ValueError, match="requires dt"):
         talg.build_alltoall(tcomm, at.Algorithm.PALLAS, None)
-
-
-def test_select_behaviour():
-    _select_parity_non_default_registers()
-    _main_path_families_at_world8()
-    _explicit_request_and_fallback()
-    _unported_families_raise()
