@@ -36,7 +36,9 @@ from .constants import ACCLError, dataType, errorCode, operation, \
 from .obs import metrics as _metrics
 from .ops import collective_alltoall as _a2a_ops
 from .ops import collective_matmul as _cm_ops
+from .models import pipeline as _pp_model
 from .ops import flash as _flash_ops
+from .ops import pipeline_relay as _pp_relay
 from .parallel import algorithms, hierarchical, primitives
 from .parallel.compiler import ProgramCache
 from .request import Request
@@ -79,8 +81,9 @@ class ACCL:
         """Write-through: the registers that steer module-level policy are
         applied on every assignment (a bad ``flash_bwd``, ``flash_decode``,
         ``flash_prefill``, ``kv_cache_dtype``, ``kv_quant_scale``,
-        ``dcn_wire_dtype`` or ``cmatmul_wire_dtype`` raises ValueError
-        naming the register and leaves the config as it was)."""
+        ``dcn_wire_dtype``, ``cmatmul_wire_dtype``, ``pp_schedule`` or
+        ``pp_interleave`` raises ValueError naming the register and leaves
+        the config as it was)."""
         _flash_ops.set_flash_bwd_mode(cfg.flash_bwd)
         _flash_ops.set_flash_decode_mode(cfg.flash_decode)
         _flash_ops.set_flash_prefill_mode(cfg.flash_prefill)
@@ -97,6 +100,10 @@ class ACCL:
         _a2a_ops.set_overlap_enabled(cfg.moe_overlap)
         _a2a_ops.set_overlap_threshold(cfg.a2a_matmul_threshold)
         _a2a_ops.set_dw_overlap_enabled(cfg.moe_dw_overlap)
+        _pp_model.set_schedule(cfg.pp_schedule)
+        _pp_model.set_interleave(cfg.pp_interleave)
+        _pp_model.set_cost_config(cfg)
+        _pp_relay.set_overlap_enabled(cfg.pp_overlap)
         self._config = cfg
         self._programs.set_maxsize(cfg.program_cache_size)
 

@@ -4,8 +4,8 @@
 default, and the same ``to_json``/``from_json`` text, so a configuration
 tuned or saved by either package loads in the other. The registers this
 port does not read yet (the schedule synthesizer's multi-axis, two-tier and
-full-authority knobs, the collective-matmul, MoE, ZeRO, pipeline, flash and
-serving registers, the resilience timers) are present and inert.
+full-authority knobs, the ZeRO and publication registers, the resilience
+timers) are present and inert.
 """
 from __future__ import annotations
 

@@ -26,7 +26,8 @@ BUILD_DIR = _PKG / "_cuda_build"
 #: sources, by library name
 SOURCES = {"ring": SRC_DIR / "ring.cu", "plugins": SRC_DIR / "plugins.cu",
            "a2a": SRC_DIR / "a2a.cu", "cmatmul": SRC_DIR / "cmatmul.cu",
-           "flash": SRC_DIR / "flash.cu", "decode": SRC_DIR / "decode.cu"}
+           "flash": SRC_DIR / "flash.cu", "decode": SRC_DIR / "decode.cu",
+           "pipeline": SRC_DIR / "pipeline.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
@@ -190,9 +191,18 @@ def _declare_decode(lib: ctypes.CDLL) -> None:
         fn.restype = c_int
 
 
+def _declare_pipeline(lib: ctypes.CDLL) -> None:
+    c_int, c_ll, c_p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    lib.accl_pipeline_relay.argtypes = [u64p, u64p, u64p, u64p, c_int, c_int,
+                                        c_ll, c_ll, c_int, c_p]
+    lib.accl_pipeline_relay.restype = c_int
+
+
 _DECLARE = {"ring": _declare_ring, "plugins": _declare_plugins,
             "a2a": _declare_a2a, "cmatmul": _declare_cmatmul,
-            "flash": _declare_flash, "decode": _declare_decode}
+            "flash": _declare_flash, "decode": _declare_decode,
+            "pipeline": _declare_pipeline}
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

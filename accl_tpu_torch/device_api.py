@@ -5,14 +5,15 @@ device. Here every rank is a row of the first axis of the tensors passed,
 so a call acts on all ranks at once.
 
 Ported so far: the MoE pair :func:`alltoall_matmul` and
-:func:`matmul_alltoall`, and the tensor-parallel collective matmuls
+:func:`matmul_alltoall`, the tensor-parallel collective matmuls
 :func:`all_gather_matmul`, :func:`matmul_reduce_scatter` and
-:func:`fsdp_matmul`, all differentiable (the backward runs the dual fused
-kernels and the gathered wgrads). Still to port (ROADMAP.md queue 1, item
-10b): ``rank``, ``world``, ``allreduce``, ``reduce_to``, ``bcast``,
+:func:`fsdp_matmul`, and the pipeline tick's relay :func:`pp_relay`, all
+differentiable (the backward runs the dual fused kernels, the gathered
+wgrads, or the channel-swapped relay). Still to port (ROADMAP.md queue 1,
+item 10b): ``rank``, ``world``, ``allreduce``, ``reduce_to``, ``bcast``,
 ``scatter``, ``gather``, ``all_gather``, ``reduce_scatter``,
-``all_to_all``, ``pp_relay``, ``put_next``, ``get_prev``, ``send_recv``,
-``combine`` and ``barrier``.
+``all_to_all``, ``put_next``, ``get_prev``, ``send_recv``, ``combine`` and
+``barrier``.
 """
 from __future__ import annotations
 
@@ -81,3 +82,15 @@ def fsdp_matmul(x, wt_shard, overlap: Optional[bool] = None,
     yt = cm.all_gather_matmul(wt_shard, x.transpose(1, 2), overlap,
                               bidirectional, wire_dtype)
     return yt.transpose(1, 2)
+
+
+def pp_relay(fwd, bwd, overlap: Optional[bool] = None):
+    """One pipeline tick's relay: ``fwd`` (world, n, d), or (world, L, n, d)
+    with L independent lanes, shifts one rank forward (stage r's activation
+    to stage r+1) while ``bwd`` shifts one rank back (the gradient's reverse
+    hop), both in one launch of the relay kernel when its plan engages
+    (:mod:`.ops.pipeline_relay`), the counted roll pair otherwise.
+    ``overlap=None`` follows ``ACCLConfig.pp_overlap``. Differentiable: the
+    backward is the same relay with the channels swapped."""
+    from .ops import pipeline_relay as pr
+    return pr.pp_relay(fwd, bwd, overlap)

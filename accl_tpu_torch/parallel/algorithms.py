@@ -590,3 +590,19 @@ def build_fsdp_matmul(comm, algo: Algorithm, bidirectional: bool = True,
         return yt.transpose(1, 2)
 
     return prog
+
+
+def build_pipeline_relay(comm, algo: Algorithm) -> Callable:
+    """(world, n, d) forward payloads + (world, n, d) backward payloads ->
+    the pair after one pipeline tick's relay: forward rows shift +1 rank,
+    backward rows -1. PALLAS runs the relay kernel
+    (:mod:`..ops.pipeline_relay`), anything else the roll pair. The
+    standalone program form; the train steps compose the same op through
+    :mod:`..models.pipeline`."""
+    from ..ops import pipeline_relay as pr
+    overlap = algo == Algorithm.PALLAS
+
+    def prog(f, b):
+        return pr.pp_relay(f, b, overlap=overlap)
+
+    return prog

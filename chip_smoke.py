@@ -5,8 +5,8 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, in order;
 any failure exits non-zero and nothing is caught and skipped:
 
 1. build the kernels from ``accl_tpu_torch/csrc`` (``ring.cu``,
-   ``plugins.cu``, ``a2a.cu``, ``cmatmul.cu``, ``flash.cu`` and
-   ``decode.cu``, one ``nvcc`` each, in parallel) and print the build
+   ``plugins.cu``, ``a2a.cu``, ``cmatmul.cu``, ``flash.cu``, ``decode.cu``
+   and ``pipeline.cu``, one ``nvcc`` each, in parallel) and print the build
    time, the card and its power limit;
 2. hold every kernel against its plain PyTorch version on the card, bit
    for bit (``torch.equal``, or the raw bits where NaN can occur): the four
@@ -41,9 +41,14 @@ any failure exits non-zero and nothing is caught and skipped:
    global-attention width (f32, bf16 and int8 pools, int8 with per-page
    scales, lengths 0, one page and full capacity, prefill chunks from 0,
    mid-chain and to full capacity: within 1e-5 of the largest magnitude),
-   then time each kernel, its plain version and a one-call PyTorch
-   yardstick at the shapes of the main path (for attention
-   ``scaled_dot_product_attention``, timed only);
+   and the pipeline relay by bits (P in {2, 3, 8}, one and two lanes, one
+   element, one segment, a ragged three-segment length and (512, 3072);
+   f32, bf16, int32 and int8 with NaN and +-0), then time each kernel,
+   its plain version and a one-call PyTorch yardstick at the shapes of the
+   main path (for attention
+   ``scaled_dot_product_attention``, timed only; for the relay two
+   ``torch.roll``s, timed with the host dispatch hidden behind a queued
+   device sleep);
 3. the main path, each part with every launch counter set to 0 just
    before it and read just after:
    a. ``ACCL(world=8)`` runs AUTO all-reduce, f32 SUM, from 4 B to 1 GiB
@@ -119,6 +124,19 @@ any failure exits non-zero and nothing is caught and skipped:
       a decode step, flash_decode_span_kernel once a chunk, the unpaged arm
       neither), the arms within 1e-5 of scale and two slots against a
       float64 attention block over their whole sequences; p50 and tokens/s;
+   k. pipeline-parallel training at Megatron-LM 8.3B's block width (hidden
+      3072, FFN 12288, 32 heads of 96, no biases, no norm), one block per
+      stage, f32, SGD: at (pp 8, dp 1, tp 1) with 8 microbatches of 512
+      rows, the fused 1F1B step (one pp_relay_kernel launch per tick: 30),
+      its ``overlap=False`` baseline (none) and GPipe (none), fused against
+      baseline bit-equal or within 1e-6 of scale, 1F1B against GPipe within
+      1e-4, the loss against a float64 forward within 1e-4; at (pp 4, dp 2,
+      tp 1) the step demotes to GPipe on the flat datapath (the plans answer
+      ``vmem_miss``), counted; at (pp 2, dp 4, tp 1) the fused step launches
+      agmm_kernel, mmrs_kernel and wgrad_kernel as the plans give, against
+      the flat step within 1e-4; then ``build_pipeline_relay`` PALLAS
+      against XLA from 4 KiB to 64 MiB per rank, exact; p50, tokens/s,
+      bubble, stash slots, launches and the relay's share of each arm;
 4. print the ``kernels`` line, the card line and, last, the device line.
 
 Exits 2 without printing a result when no CUDA device is visible.
@@ -1716,6 +1734,129 @@ def measure_decode_kernels(gen) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2: the pipeline relay kernel (row 20)
+# ---------------------------------------------------------------------------
+
+#: phase 3k's stage: Megatron-LM 8.3B's block (hidden 3072, FFN 12288, 32
+#: heads of 96; Shoeybi et al. 2019, Table 1), 512 rows per microbatch, 8
+#: microbatches
+PIPE = {"d": 3072, "h": 12288, "heads": 32, "rows": 512, "M": 8}
+#: the scale of phase 3k's inputs and targets. The block has no norm, so
+#: each sublayer about doubles the activations' variance down the stages,
+#: and the attention scores grow as its square: from inputs at 0.3 N(0, 1)
+#: (the JAX suite's scale) the last stages' softmax saturates and float32
+#: rounding differences grow to percents of the gradients against float64
+#: (a CPU run of 8 stages at d 256, 128 rows), at 0.1 and below they stay
+#: near 1e-6
+XSCALE = 0.03
+
+
+def relay_operands(shape, dtype, gen):
+    """Random relay payloads, the float ones with NaN, -NaN, +0 and -0 at
+    their start."""
+    import torch
+    t = make(shape, dtype, gen)
+    if t.is_floating_point():
+        sp = torch.tensor([float("nan"), -float("nan"), 0.0, -0.0],
+                          device="cuda").to(dtype)
+        flat = t.view(-1)
+        flat[:min(4, flat.numel())] = sp[:flat.numel()]
+    return t
+
+
+def check_pp_relay_kernel(gen) -> None:
+    """pp_relay_kernel against its plain version and against torch.roll, by
+    bits: P in {2, 3, 8}, lanes 1 and 2, payloads of one element, one
+    segment, a ragged multi-segment length (f32: 3 segments, lanes not
+    16-byte aligned) and the main path's (512, 3072); f32, bf16 and int32
+    (and int8 on the one-element payload, the byte path), NaN and +-0 among
+    the floats."""
+    import torch
+    from accl_tpu_torch.ops import pipeline_relay as pr
+    n_cases = 0
+    for P in (2, 3, 8):
+        for L in (1, 2):
+            for n, d in ((1, 1), (16, 64), (5, 130001), (512, 3072)):
+                dts = [torch.float32, torch.bfloat16, torch.int32]
+                if n * d == 1:
+                    dts.append(torch.int8)
+                for dt in dts:
+                    shape = (P, n, d) if L == 1 else (P, L, n, d)
+                    f = relay_operands(shape, dt, gen)
+                    b = relay_operands(shape, dt, gen)
+                    plan = pr.pp_plan(n, d, dt, P)
+                    fo, bo = pr.relay(f, b, plan)
+                    pf, pb = pr.plain_relay(f, b, plan["C"],
+                                            plan["seg_elems"])
+                    torch.cuda.synchronize()
+                    case = (P, L, n, d, dt, plan["C"])
+                    if not (same_bits(fo, pf) and same_bits(bo, pb)):
+                        fail(f"pp_relay_kernel != plain {case}")
+                    if not (same_bits(fo, torch.roll(f, 1, 0))
+                            and same_bits(bo, torch.roll(b, -1, 0))):
+                        fail(f"pp_relay_kernel is not the +1/-1 shift "
+                             f"{case}")
+                    n_cases += 1
+    log(f"phase 2: {n_cases} pp_relay kernel-vs-plain cases bit-equal")
+
+
+def time_queued_ms(fn, iters: int) -> float:
+    """Median device time of ``fn()`` in ms with the host's launch work
+    hidden: each sample queues a ~1 ms device sleep before its start event,
+    so the card is busy while the host prepares and enqueues ``fn``'s
+    launches, and the events see only their device time (``time_ms`` of a
+    call shorter than its host dispatch measures the dispatch)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        samples.append(a.elapsed_time(b))
+    return statistics.median(samples)
+
+
+def measure_pp_relay_kernel(gen) -> dict:
+    """pp_relay_kernel at phase 3k's tick, (8, 512, 3072) f32 per channel
+    (6 segments of 1 MiB). Bound: each channel's payload read once and
+    written once. Yardstick: torch.roll(f, 1, 0) and torch.roll(b, -1, 0),
+    timed together."""
+    import torch
+    from accl_tpu_torch.ops import pipeline_relay as pr
+    P, n, d = 8, PIPE["rows"], PIPE["d"]
+    f = torch.randn((P, n, d), generator=gen, device="cuda")
+    b = torch.randn((P, n, d), generator=gen, device="cuda")
+    plan = pr.pp_plan(n, d, torch.float32, P)
+    fo, bo = pr.relay(f, b, plan)
+    pf, pb = pr.plain_relay(f, b, plan["C"], plan["seg_elems"])
+    if not (torch.equal(fo, pf) and torch.equal(bo, pb)):
+        fail("pp_relay_kernel != plain at the main-path shape")
+    err = max((fo - pf).abs().max().item(), (bo - pb).abs().max().item())
+    r = {"shape": [P, n, d], "max_abs_err": err, "segments": plan["C"],
+         "ms": time_queued_ms(lambda: pr.relay(f, b, plan), 20),
+         "plain_ms": time_queued_ms(lambda: pr.plain_relay(
+             f, b, plan["C"], plan["seg_elems"]), 20),
+         "library_ms": time_queued_ms(lambda: (torch.roll(f, 1, 0),
+                                               torch.roll(b, -1, 0)), 20),
+         "host_ms": time_ms(lambda: pr.relay(f, b, plan), 20),
+         "bound_ms": 2 * 2 * f.numel() * 4 / HBM_BYTES_PER_S * 1e3,
+         "bound_by": "bytes"}
+    log(f"  pp_relay_kernel {tuple(f.shape)} x 2 channels, {plan['C']} "
+        f"segments: kernel {r['ms']!r} ms (with its host dispatch "
+        f"{r['host_ms']!r} ms), plain {r['plain_ms']!r} ms, library (two "
+        f"rolls) {r['library_ms']!r} ms, bound {r['bound_ms']!r} ms")
+    del f, b, fo, bo, pf, pb
+    torch.cuda.empty_cache()
+    return {"pp_relay_kernel": r}
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
@@ -1725,6 +1866,7 @@ def wrappers() -> dict:
     from accl_tpu_torch.ops import collective_matmul as cm
     from accl_tpu_torch.ops import compression as cp
     from accl_tpu_torch.ops import flash as fl
+    from accl_tpu_torch.ops import pipeline_relay as ppr
     from accl_tpu_torch.ops import reduce_ops as ro
     from accl_tpu_torch.parallel import pallas_chunked as pc
     from accl_tpu_torch.parallel import pallas_ring as pr
@@ -1750,7 +1892,8 @@ def wrappers() -> dict:
             "flash_bwd_kv_kernel": fl.flash_bwd_kv,
             "flash_bwd_q_kernel": fl.flash_bwd_q,
             "flash_decode_kernel": fl.paged_decode,
-            "flash_decode_span_kernel": fl.paged_decode_span}
+            "flash_decode_span_kernel": fl.paged_decode_span,
+            "pp_relay_kernel": ppr.relay}
 
 
 def counts() -> dict:
@@ -3089,6 +3232,336 @@ def serving_paths(gen, kernel_ms: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3k: pipeline-parallel training
+# ---------------------------------------------------------------------------
+
+def transformer_loss64(params, x, y, heads: int) -> float:
+    """The composed step's loss at (pp, 1, 1) in float64 on the card: each
+    stage's block (attention with residual, then the tanh-GELU MLP with
+    residual, no biases, no norm) over every microbatch's rows as the
+    sequence; the mean over microbatches of the per-microbatch MSE."""
+    import torch
+    import torch.nn.functional as F
+    M, b, d = x.shape
+    dh = d // heads
+    h = x.double()
+    for p in range(params.attn.shape[0]):
+        bucket = params.attn[p, 0, 0].double()
+        wqkv = bucket[:3 * d * d].view(d, 3 * d)
+        wo = bucket[3 * d * d:4 * d * d].view(d, d)
+
+        def th(t):
+            return t.reshape(M, b, heads, dh).transpose(1, 2)
+        q, k, v = (h @ wqkv).split(d, -1)
+        s = th(q) @ th(k).transpose(-2, -1) / math.sqrt(dh)
+        o = (torch.softmax(s, -1) @ th(v)).transpose(1, 2).reshape(M, b, d)
+        h = h + o @ wo
+        u = F.gelu(h @ params.w1t[p, 0, 0].double().T, approximate="tanh")
+        h = h + u @ params.w2t[p, 0, 0].double().T
+        del bucket, wqkv, wo, q, k, v, s, o, u
+    return ((h - y.double()) ** 2).mean(dim=(1, 2)).mean().item()
+
+
+def scale_err(what: str, got, ref, rel: float) -> float:
+    """max|got - ref| / max|ref|; fail above ``rel``."""
+    err = (got.double() - ref.double()).abs().max().item()
+    top = ref.double().abs().max().item()
+    if err > rel * top:
+        fail(f"{what}: max|diff| {err!r} > {rel} x {top!r}")
+    return err / top
+
+
+def compare_steps(what: str, a, b, rel: float) -> dict:
+    """Two steps' (new params, loss) within ``rel`` of each tensor's largest
+    magnitude; returns the ratios, and whether they are bit-equal."""
+    import torch
+    (pa, la), (pb, lb) = a, b
+    out = {"bit_equal": bool(torch.equal(la, lb) and all(
+        torch.equal(x, y) for x, y in zip(pa, pb)))}
+    out["loss"] = scale_err(f"{what} loss", la, lb, rel)
+    for f, x, y in zip(pa._fields, pa, pb):
+        out[f] = scale_err(f"{what} new {f}", x, y, rel)
+    return out
+
+
+def planned(p) -> int:
+    """Launches one body call makes under its plan."""
+    return p.get("nmb", p.get("nnb", p.get("nctb", 1)))
+
+
+def run_arm(step, params, x, y, iters: int):
+    """One step with the counters at 0 (its result and every counter after
+    it), then the p50 of ``iters`` more."""
+    import torch
+    reset_counts()
+    new, loss = step(params, x, y)
+    torch.cuda.synchronize()
+    after = counts()
+    return (new, loss), after, p50_call(lambda: step(params, x, y), iters)
+
+
+def nonzero(c: dict) -> dict:
+    return {k: v for k, v in c.items() if v}
+
+
+def pp_paths(gen, kernel_ms: dict) -> dict:
+    """Phase 3k: pipeline-parallel training at Megatron-LM 8.3B's block
+    width (:data:`PIPE`; random weights from the seed, no biases, no norm),
+    f32, SGD at lr 1e-2, one block per stage.
+
+    * (pp 8, dp 1, tp 1), M 8 microbatches of 512 rows: the fused 1F1B step
+      (one pp_relay_kernel launch per tick, 30 ticks; flash forward and
+      fused backward), the requested ``overlap=False`` 1F1B baseline (the
+      roll pair, no relay launch) and GPipe (no relay launch). Fused
+      against baseline bit-equal or within 1e-6 of scale (which is
+      printed), 1F1B against GPipe within 1e-4 of scale, the first loss
+      against a float64 forward of the same parameters within 1e-4
+      relative.
+    * (pp 4, dp 2, tp 1), M 4, 512 rows per dp rank: the JAX plans decline
+      the dual reduce-scatter (h 12288 rows) with ``vmem_miss``, so the step
+      demotes whole to GPipe on the flat datapath, counted under
+      op="pp_pipeline", and no collective-matmul kernel launches; it is held
+      against the flat 1F1B step within 1e-4 of scale.
+    * (pp 2, dp 4, tp 1), M 4, 512 rows per dp rank: the plans engage, and
+      the fused 1F1B step launches agmm_kernel, mmrs_kernel and wgrad_kernel
+      as many times as the plans give, against the flat 1F1B step within
+      1e-4 of scale.
+    * The relay ladder: ``build_pipeline_relay`` PALLAS against XLA at 4 KiB
+      to 64 MiB per rank per direction, world 8, exact, p50s.
+
+    Per arm: p50 per step, tokens/s (M x rows x dp per step), the schedule's
+    bubble fraction and stash slots, launches per kernel per step, and the
+    relay kernel's share of the step (its phase 2 time x its launches).
+    ``kernel_ms``: pp_relay_kernel's time at this tick's shape (phase 2).
+    Returns the launch counts of one fused step at (8, 1, 1)."""
+    import torch
+    import accl_tpu_torch as at
+    from accl_tpu_torch.models import pipeline as pp
+    from accl_tpu_torch.obs import metrics
+    from accl_tpu_torch.parallel import algorithms
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on for float32 matmuls")
+    d, h, heads, rows, M = (PIPE[k] for k in ("d", "h", "heads", "rows",
+                                              "M"))
+    lr, f32 = 1e-2, torch.float32
+    relay_ms = kernel_ms["pp_relay_kernel"]
+    report = {}
+
+    def arm_report(step, fired, p50, pp_, dp, M_):
+        tab = pp.schedule_table(pp_, M_) if step.schedule == "1f1b" \
+            else None
+        return {"schedule": step.schedule, "fused": step.fused,
+                "engage_reason": step.engage_reason,
+                "p50_ms": p50 * 1e3,
+                "tokens_per_s": M_ * rows * dp / p50,
+                "bubble": tab.bubble_fraction if tab is not None
+                else pp.gpipe_bubble_fraction(pp_, M_),
+                "stash_slots": step.stash_slots, "launches": fired,
+                "relay_share": relay_ms * fired.get("pp_relay_kernel", 0)
+                / (p50 * 1e3)}
+
+    # (pp 8, dp 1, tp 1): the three arms
+    mesh = pp.make_pp_mesh("cuda", 8)
+    params = pp.init_pp_transformer(gen, mesh, d, h, heads)
+    # inputs and targets at XSCALE N(0, 1): see XSCALE
+    x = torch.randn((M, rows, d), generator=gen, device="cuda") * XSCALE
+    y = torch.randn((M, rows, d), generator=gen, device="cuda") * XSCALE
+    tab = pp.schedule_table(8, M)
+    steps = {"fused": pp.build_pp_transformer_train_step(
+                 mesh, d, h, heads, M, lr, schedule="1f1b", wire_dtype="off"),
+             "baseline": pp.build_pp_transformer_train_step(
+                 mesh, d, h, heads, M, lr, schedule="1f1b", overlap=False),
+             "gpipe": pp.build_pp_transformer_train_step(
+                 mesh, d, h, heads, M, lr, schedule="gpipe",
+                 wire_dtype="off")}
+    res, main_counts = {}, None
+    for name, step in steps.items():
+        res[name], after, p50 = run_arm(step, params, x, y, 3)
+        if name == "fused":
+            main_counts = after
+        report[f"(8,1,1) {name}"] = arm_report(step, nonzero(after), p50, 8,
+                                               1, M)
+    fired = report["(8,1,1) fused"]["launches"]
+    if not steps["fused"].fused or steps["fused"].schedule != "1f1b":
+        fail(f"the fused (8, 1, 1) step resolved {steps['fused'].schedule} "
+             f"({steps['fused'].engage_reason})")
+    if fired.get("pp_relay_kernel") != tab.steps:
+        fail(f"one fused 1F1B step launched pp_relay_kernel "
+             f"{fired.get('pp_relay_kernel')} times, not once per tick "
+             f"({tab.steps})")
+    if not fired.get("flash_fwd_kernel") or \
+            not fired.get("flash_bwd_fused_kernel"):
+        fail(f"the fused step did not run the flash kernels: {fired}")
+    for name in ("baseline", "gpipe"):
+        if report[f"(8,1,1) {name}"]["launches"].get("pp_relay_kernel"):
+            fail(f"the {name} arm launched pp_relay_kernel")
+    if steps["fused"].stash_slots != tab.stash_slots or tab.stash_slots > 8:
+        fail(f"stash slots {steps['fused'].stash_slots}, table "
+             f"{tab.stash_slots}")
+    errs = {"fused - baseline": compare_steps(
+                "(8,1,1) fused - baseline", res["fused"], res["baseline"],
+                1e-6),
+            "1f1b - gpipe": compare_steps(
+                "(8,1,1) 1f1b - gpipe", res["fused"], res["gpipe"], 1e-4)}
+    loss64 = transformer_loss64(params, x, y, heads)
+    errs["loss - f64"] = abs(res["fused"][1].item() - loss64) / abs(loss64)
+    if errs["loss - f64"] > 1e-4:
+        fail(f"(8,1,1) loss {res['fused'][1].item()!r} vs float64 "
+             f"{loss64!r}")
+    report["(8,1,1) errors"] = errs
+    report["(8,1,1) loss"] = res["fused"][1].item()
+    report["(8,1,1) tick breakdown ms"] = pp_breakdown(params, x, heads)
+    del res, params, x, y, steps
+    torch.cuda.empty_cache()
+
+    # (pp 4, dp 2, tp 1): the plans decline, the step demotes whole
+    M2 = 4
+    for shape, demoted in (((4, 2), True), ((2, 4), False)):
+        pp_, dp = shape
+        mesh = pp.make_pp_mesh("cuda", pp_, dp)
+        params = pp.init_pp_transformer(gen, mesh, d, h, heads)
+        x = torch.randn((M2, rows * dp, d), generator=gen,
+                        device="cuda") * XSCALE
+        y = torch.randn((M2, rows * dp, d), generator=gen,
+                        device="cuda") * XSCALE
+        key = "accl_cmatmul_fallback_total{op=\"pp_pipeline\"," \
+              "reason=\"vmem_miss\"}"
+        before = metrics.snapshot()["counters"].get(key, 0.0)
+        fused = pp.build_pp_transformer_train_step(
+            mesh, d, h, heads, M2, lr, schedule="1f1b", wire_dtype="off")
+        flat = pp.build_pp_transformer_train_step(
+            mesh, d, h, heads, M2, lr, schedule="1f1b", overlap=False)
+        rf, fired_f, p50_f = run_arm(fused, params, x, y, 2)
+        rb, fired_b, p50_b = run_arm(flat, params, x, y, 2)
+        fired_f, fired_b = nonzero(fired_f), nonzero(fired_b)
+        tag = f"({pp_},{dp},1)"
+        cmm = ("agmm_kernel", "mmrs_kernel", "wgrad_kernel")
+        if demoted:
+            got = (fused.schedule, fused.fused, fused.engage_reason)
+            if got != ("gpipe", False, "vmem_miss"):
+                fail(f"{tag} resolved {got}, not the demotion to gpipe")
+            if metrics.snapshot()["counters"].get(key, 0.0) != before + 1:
+                fail(f"{tag} demotion not counted under op=pp_pipeline")
+            if any(fired_f.get(k) for k in cmm + ("pp_relay_kernel",)):
+                fail(f"{tag} demoted step launched {fired_f}")
+        else:
+            if not fused.fused or fused.schedule != "1f1b":
+                fail(f"{tag} fused step resolved {fused.schedule} "
+                     f"({fused.engage_reason})")
+            ms, hb = rows, h // dp
+            calls = 2 * pp_ * M2               # forwards and recomputes
+            expect = {
+                "agmm_kernel": calls * (
+                    planned(cm_plan("agmm", hb, d, ms, dp))
+                    + planned(cm_plan("agmm", d // dp, h, ms, dp))),
+                "mmrs_kernel": calls // 2 * (
+                    planned(cm_plan("mmrs", h, ms, d, dp))
+                    + planned(cm_plan("mmrs", d, ms, h, dp))),
+                "wgrad_kernel": calls // 2 * (
+                    planned(cm_plan("wgrad", hb, d, ms, dp))
+                    + planned(cm_plan("wgrad", d // dp, h, ms, dp))),
+                "pp_relay_kernel": pp.schedule_table(pp_, M2).steps}
+            got = {k: fired_f.get(k, 0) for k in expect}
+            if got != expect:
+                fail(f"{tag} fused step launched {got}, the plans give "
+                     f"{expect}")
+        if any(fired_b.get(k) for k in cmm + ("pp_relay_kernel",)):
+            fail(f"{tag} flat step launched {fired_b}")
+        report[f"{tag} fused"] = arm_report(fused, fired_f, p50_f, pp_, dp,
+                                            M2)
+        report[f"{tag} flat"] = arm_report(flat, fired_b, p50_b, pp_, dp,
+                                           M2)
+        report[f"{tag} errors"] = compare_steps(
+            f"{tag} fused - flat", rf, rb, 1e-4)
+        del rf, rb, params, x, y, fused, flat
+        torch.cuda.empty_cache()
+
+    # the relay ladder
+    comm = at.Communicator(8, "cuda")
+    pal = algorithms.build_pipeline_relay(comm, at.Algorithm.PALLAS)
+    xla = algorithms.build_pipeline_relay(comm, at.Algorithm.XLA)
+    ladder = {}
+    for sz in (4 << 10, 16 << 10, 64 << 10, 256 << 10, MIB, 4 * MIB,
+               16 * MIB, 64 * MIB):
+        f = torch.randn((8, sz // 1024, 256), generator=gen, device="cuda")
+        b = torch.randn((8, sz // 1024, 256), generator=gen, device="cuda")
+        outs = pal(f, b), xla(f, b)
+        for o in outs:
+            if not (torch.equal(o[0], torch.roll(f, 1, 0))
+                    and torch.equal(o[1], torch.roll(b, -1, 0))):
+                fail(f"relay ladder at {sz} B per rank: not the shift")
+        ladder[sz] = {"pallas_ms": time_queued_ms(lambda: pal(f, b), 20),
+                      "xla_ms": time_queued_ms(lambda: xla(f, b), 20),
+                      "pallas_host_ms": time_ms(lambda: pal(f, b), 20)}
+        del f, b, outs
+    report["relay ladder p50 ms (bytes per rank per direction)"] = ladder
+    log(f"pipeline training, Megatron-LM 8.3B block (d {d}, ffn {h}, "
+        f"{heads} heads), {rows} rows per microbatch, f32: "
+        f"{json.dumps(report)}")
+    log(f"pp_relay_kernel at the (8, 512, 3072) tick (phase 2): "
+        f"{relay_ms!r} ms")
+    torch.cuda.empty_cache()
+    return main_counts
+
+
+def pp_breakdown(params, x, heads: int) -> dict:
+    """Device ms of a tick with all 8 stages busy at phase 3k's width, one
+    microbatch each (the block's sublayers batched over the stages as the
+    step batches them): each sublayer forward, and forward + backward
+    (what a 1F1B backward tick runs: the recompute and the gradients of
+    the input and the weights), and the flash kernels alone at the shape
+    the attention sublayer gives them (8 x 32 heads of (512, 96))."""
+    import torch
+    from accl_tpu_torch.models import zero
+    from accl_tpu_torch.ops import flash as fl
+    P_, (rows, d) = params.attn.shape[0], x.shape[1:]
+    hid = params.w1t.shape[-2]
+    h0 = x[0].expand(P_, 1, rows, d).contiguous()
+
+    def leaves():
+        return (h0.clone().requires_grad_(),
+                params.attn.reshape(P_, 1, -1).clone().requires_grad_(),
+                params.w1t.reshape(P_, 1, hid, d).clone().requires_grad_(),
+                params.w2t.reshape(P_, 1, d, hid).clone().requires_grad_())
+
+    h, bucket, w1, w2 = leaves()
+    subl = {
+        "attention": (lambda: zero._attn_sublayer(h, bucket, d, 1, heads),
+                      (h, bucket)),
+        "mlp": (lambda: zero._mlp_sublayer(
+            h, lambda xt: torch.matmul(w1, xt),
+            lambda u: torch.matmul(w2, u), 1), (h, w1, w2))}
+    q, k, v = (torch.randn((P_ * heads, rows, d // heads), device="cuda")
+               .requires_grad_() for _ in range(3))
+    subl["flash kernels"] = (lambda: fl.flash_attention(q, k, v), (q, k, v))
+    out = {}
+    for name, (fn, wrt) in subl.items():
+        with torch.no_grad():
+            out[f"{name} forward"] = time_queued_ms(fn, 5)
+
+        def both(fn=fn, wrt=wrt):
+            with torch.enable_grad():
+                y = fn()
+                torch.autograd.grad(y, wrt, torch.ones_like(y))
+        out[f"{name} forward + backward"] = time_queued_ms(both, 5)
+    return out
+
+
+def cm_plan(op: str, a: int, b: int, c: int, P: int) -> dict:
+    """The port's collective-matmul plan of one body call, f32,
+    bidirectional (the composed step's defaults)."""
+    import torch
+    from accl_tpu_torch.ops import collective_matmul as cm
+    f32 = torch.float32
+    if op == "agmm":
+        return cm.agmm_plan(a, b, c, P, f32, True, w_dtype=f32)
+    if op == "mmrs":
+        return cm.mmrs_plan(a, b, c, P, f32, True, w_dtype=f32)
+    return cm.wgrad_plan(a, b, c, P, f32, f32, True)
+
+
+# ---------------------------------------------------------------------------
 
 REPLACES = {
     "ring_rs_kernel": "accl_tpu/parallel/pallas_ring.py:330",
@@ -3114,6 +3587,7 @@ REPLACES = {
     "flash_bwd_q_kernel": "accl_tpu/ops/flash.py:658",
     "flash_decode_kernel": "accl_tpu/ops/flash.py:1590",
     "flash_decode_span_kernel": "accl_tpu/ops/flash.py:1661",
+    "pp_relay_kernel": "accl_tpu/ops/pipeline_relay.py:155",
 }
 #: the streaming variant each kernel replaces as well
 ALSO_REPLACES = {
@@ -3133,7 +3607,8 @@ SOURCE = {"ring_rs_kernel": "ring.cu", "ring_ag_kernel": "ring.cu",
           "flash_bwd_kv_kernel": "flash.cu",
           "flash_bwd_q_kernel": "flash.cu",
           "flash_decode_kernel": "decode.cu",
-          "flash_decode_span_kernel": "decode.cu"}
+          "flash_decode_span_kernel": "decode.cu",
+          "pp_relay_kernel": "pipeline.cu"}
 #: the part of phase 3 whose launch counts each kernel's entry reports
 PART = {"ring_rs_kernel": "allreduce", "ring_ag_kernel": "allreduce",
         "chunked_rs_kernel": "allreduce", "chunked_ag_kernel": "allreduce",
@@ -3146,7 +3621,8 @@ PART = {"ring_rs_kernel": "allreduce", "ring_ag_kernel": "allreduce",
         "a2a_wgrad_kernel": "moe_train", "flash_fwd_kernel": "context",
         "flash_bwd_fused_kernel": "context", "flash_bwd_kv_kernel": "context",
         "flash_bwd_q_kernel": "context", "flash_decode_kernel": "serving",
-        "flash_decode_span_kernel": "serving"}
+        "flash_decode_span_kernel": "serving",
+        "pp_relay_kernel": "pipeline"}
 
 
 def main() -> int:
@@ -3181,6 +3657,7 @@ def main() -> int:
     check_wgrad_kernel(gen)
     check_flash_kernels(gen)
     check_decode_kernels(gen)
+    check_pp_relay_kernel(gen)
     total = torch.cuda.get_device_properties(0).total_memory
     big_ok = total >= 60 * GIB
     meas = measure_kernels(gen, big_ok)
@@ -3191,6 +3668,7 @@ def main() -> int:
     meas.update(measure_cmatmul_kernels(gen))
     meas.update(measure_flash_kernels(gen))
     meas.update(measure_decode_kernels(gen))
+    meas.update(measure_pp_relay_kernel(gen))
 
     parts = {"allreduce": main_path(gen), "slice2": slice2_paths(gen),
              "rooted": rooted_paths(gen, big_ok),
@@ -3209,7 +3687,9 @@ def main() -> int:
                  k: meas[k]["ms"] for k in REPLACES if "flash_bwd" in k
                  or k == "flash_fwd_kernel"}),
              "serving": serving_paths(gen, {
-                 k: meas[k]["ms"] for k in REPLACES if "decode" in k})}
+                 k: meas[k]["ms"] for k in REPLACES if "decode" in k}),
+             "pipeline": pp_paths(gen, {
+                 "pp_relay_kernel": meas["pp_relay_kernel"]["ms"]})}
     launches = {k: parts[PART[k]][k] for k in REPLACES}
     for k, v in launches.items():
         if v <= 0:
@@ -3226,7 +3706,7 @@ def main() -> int:
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
             "shape": m["shape"]}
         for extra in ("ring_bound_ms", "tensor_core_bound_ms",
-                      "live_pages", "useful_gflop"):
+                      "live_pages", "useful_gflop", "segments"):
             if extra in m:
                 entry[extra] = m[extra]
         if k in ALSO_REPLACES:

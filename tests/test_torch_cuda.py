@@ -1,17 +1,18 @@
 """The port's CUDA kernels (the ring kernels, the rooted relays, the
 all-to-all, the plugin lanes, the fused MoE dispatch, combine and a2a-wgrad,
 the collective matmuls with their gathered wgrad, the four flash
-attention kernels and the two paged decode kernels) against their plain
-PyTorch versions on the card:
+attention kernels, the two paged decode kernels and the pipeline relay)
+against their plain PyTorch versions on the card:
 bit-equal (``torch.equal``, or the raw bits where NaN can occur; the matmul
 kernels on integer-valued operands), the flash kernels within 1e-5 (f32) or
 1e-2 (bf16) of each tensor's largest magnitude, their backward bit-equal
 across two runs and between the fused and the two-pass arm, the decode
-kernels within 1e-5; the context-parallel layers and the TP decode and
-prefill steps on the card against the CPU. This test needs an NVIDIA GPU with
-``nvcc`` (the kernels build at first use); where no card is visible it
-skips. On the card, where JAX is not installed, skip the suite's conftest:
-``pytest --noconftest tests/test_torch_cuda.py -m cuda``.
+kernels within 1e-5; the context-parallel layers, the TP decode and
+prefill steps and the pipeline train steps on the card against the CPU.
+This test needs an NVIDIA GPU with ``nvcc`` (the kernels build at first
+use); where no card is visible it skips. On the card, where JAX is not
+installed, skip the suite's conftest: ``pytest --noconftest
+tests/test_torch_cuda.py -m cuda``.
 
 One test loops over every case and names the failing one in its message,
 so the suite adds one item to the tier-1 collection."""
@@ -80,6 +81,8 @@ def test_ring_kernels_on_card(gen, monkeypatch):
     _context_on_card(gen)
     _decode_kernels(gen)
     _serving_on_card(gen)
+    _pp_relay_kernel(gen)
+    _pipeline_on_card(gen)
     _accl_on_card(gen, monkeypatch)
 
 
@@ -716,3 +719,73 @@ def _serving_on_card(gen):
         for n, (a, b) in enumerate(zip(res["cuda"], res["cpu"])):
             _near(f"serving overlap={overlap} output {n}", a.float(),
                   b.float(), 1e-5)
+
+
+def _pp_relay_kernel(gen):
+    """pp_relay_kernel against its plain version by bits: P 2, 3 and 8, one
+    and two lanes, one element, one segment and a ragged three-segment
+    payload (lanes not 16-byte aligned), f32 with NaN and +-0, bf16, int32,
+    and int8 (the byte path)."""
+    from accl_tpu_torch.ops import pipeline_relay as pr
+    for P in (2, 3, 8):
+        for L in (1, 2):
+            for n, d in ((1, 1), (16, 64), (5, 130001)):
+                for dt in (torch.float32, torch.bfloat16, torch.int32,
+                           torch.int8):
+                    shape = (P, n, d) if L == 1 else (P, L, n, d)
+                    f = _make(shape, dt, gen)
+                    b = _make(shape, dt, gen)
+                    if dt == torch.float32:
+                        f.view(-1)[0] = float("nan")
+                        b.view(-1)[0] = -0.0
+                    plan = pr.pp_plan(n, d, dt, P)
+                    launches = pr.relay.launches
+                    got = pr.relay(f, b, plan)
+                    want = pr.plain_relay(f, b, plan["C"], plan["seg_elems"])
+                    torch.cuda.synchronize()
+                    assert pr.relay.launches == launches + 1
+                    for g, w in zip(got, want):
+                        assert _same_bits(g, w), (P, L, n, d, dt)
+
+
+def _pipeline_on_card(gen):
+    """The 1F1B and GPipe train steps on the card against the CPU: the
+    simple stage family at world 4, and the composed step at (2, 2, 1)
+    fused and flat and (4, 1, 1) with 128 rows (the flash arm)."""
+    import accl_tpu_torch as at
+    from accl_tpu_torch.models import pipeline as pp
+    from accl_tpu_torch.ops import pipeline_relay as pr
+    world, M, n, d = 4, 4, 3, 16
+    params = pp.init_stage_params(gen, at.Communicator(world, "cuda"), d)
+    x = torch.randn((world, M, n, d), generator=gen, device="cuda")
+    for sched in ("1f1b", "gpipe"):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            step = pp.build_pp_train_step(at.Communicator(world, dev), M, d,
+                                          schedule=sched)
+            launches = pr.relay.launches
+            new, loss = step(pp.PPStageParams(*(t.to(dev) for t in params)),
+                             x.to(dev), x.to(dev).flip(0))
+            res[dev] = [t.cpu() for t in (*new, loss)]
+            if dev == "cuda" and sched == "1f1b":
+                assert pr.relay.launches - launches == step.table.steps
+        for a, b in zip(res["cuda"], res["cpu"]):
+            _near(f"simple {sched}", a, b, 1e-5)
+    for shape, rows, overlap in (((2, 2, 1), 8, True), ((2, 2, 1), 8, False),
+                                 ((4, 1, 1), 128, None)):
+        D, H, heads = 64, 128, 2
+        mesh = pp.make_pp_mesh("cuda", *shape)
+        params = pp.init_pp_transformer(gen, mesh, D, H, heads)
+        B = shape[1] * rows
+        x = torch.randn((4, B, D), generator=gen, device="cuda") * 0.3
+        res = {}
+        for dev in ("cuda", "cpu"):
+            m = pp.make_pp_mesh(dev, *shape)
+            step = pp.build_pp_transformer_train_step(
+                m, D, H, heads, 4, schedule="1f1b", overlap=overlap,
+                wire_dtype="off")
+            new, loss = step(pp.PPTransformerParams(
+                *(t.to(dev) for t in params)), x.to(dev), x.to(dev) * 0.5)
+            res[dev] = [t.cpu() for t in (*new, loss)]
+        for a, b in zip(res["cuda"], res["cpu"]):
+            _near(f"composed {shape} overlap={overlap}", a, b, 1e-5)

@@ -8,8 +8,8 @@ both channels in one group, and credit chains that cross groups all run;
 the fold order being the same. Each JAX oracle configuration runs once
 per module over the ``accl`` fixture's 8 devices. Each test loops over its
 cases and names the failing one, so the port adds few items to the tier-1
-collection (the plain kernel's segment-wise check runs inside the
-all-gather test).
+collection (the all-gather cases and the plain kernel's segment-wise check
+run inside the reduce-scatter test).
 """
 import jax
 import jax.numpy as jnp
@@ -81,7 +81,13 @@ RS_CASES = [(1, True, "float32"), (2, True, "int32"), (3, True, "float32"),
             (4, False, "float32")]
 
 
+# the bidirectional all-gather runs inside the allreduce cases below
+AG_CASES = [(3, False, "bfloat16")]
+
+
 def test_chunked_reduce_scatter_parity(oracle):
+    """The reduce-scatter cases, then the all-gather ones (both share the
+    oracle), then the plain kernel's segment-wise check."""
     for nseg, bidir, dt in RS_CASES:
         n = _seg_elems(dt) * nseg
         jx, tx = _inputs(100 + nseg, (WORLD, WORLD * n), dt)
@@ -95,13 +101,6 @@ def test_chunked_reduce_scatter_parity(oracle):
                                      bidirectional=bidir)
         assert tchunk._geometry(n, _T[dt], SEG)[0] == nseg
         assert _same(want, got), (nseg, bidir, dt)
-
-
-# the bidirectional all-gather runs inside the allreduce cases below
-AG_CASES = [(3, False, "bfloat16")]
-
-
-def test_chunked_allgather_parity(oracle):
     for nseg, bidir, dt in AG_CASES:
         n = _seg_elems(dt) * nseg - 7          # ragged tail segment
         jx, tx = _inputs(200 + nseg, (WORLD, n), dt)
@@ -111,7 +110,7 @@ def test_chunked_allgather_parity(oracle):
                           bidirectional=bidir), jx)
         got = tchunk.chunked_ag_body(tx, P=WORLD, dtype=_T[dt],
                                      segment_bytes=SEG, bidirectional=bidir)
-        assert _same(want, got), (nseg, bidir, dt)
+        assert _same(want, got), ("allgather", nseg, bidir, dt)
     _plain_kernel_is_segmentwise_ring()
 
 
