@@ -7,6 +7,14 @@
 //                             fixed-order dQ pass flash_dq_reduce_kernel
 //   flash_bwd_kv_kernel    <- _bwd_kv_kernel (:612, call :2327)
 //   flash_bwd_q_kernel     <- _bwd_q_kernel (:658, call :2373)
+// and the four of its head-packed d = 64 arm (flash_attention_packed, :1285;
+// see "The head-packed arm" below):
+//   flash_fwd_packed_kernel       <- _kernel_packed (:874, call :952)
+//   flash_bwd_fused_packed_kernel <- _bwd_fused_kernel_packed (:1147, call
+//                                    :1214), with flash_dq_reduce_kernel
+//                                    over the packed slab
+//   flash_bwd_kv_packed_kernel    <- _bwd_kv_kernel_packed (:982, call :1070)
+//   flash_bwd_q_packed_kernel     <- _bwd_q_kernel_packed (:1024, call :1110)
 //
 // Layout: q (H, S, d), k and v (H_kv, S, d), row-major, of one type T (f32,
 // bf16 or f16); q head h reads kv head h / g, g = H / H_kv, with no repeat.
@@ -455,6 +463,266 @@ __global__ void __launch_bounds__(FL_THREADS) flash_dq_reduce_kernel(FlashArgs a
 }
 
 // ---------------------------------------------------------------------------
+// The head-packed arm (d = 64)
+// ---------------------------------------------------------------------------
+//
+// q, k, v, out, dout and every gradient are (H2, S, 128): head 2p + h lies
+// on lane half h (columns 64 h .. 64 h + 63) of pair p. lse and dd are
+// (H2, 2, S) f32, which is the general arm's (H, S) with H = 2 H2. A block
+// of 256 x 2 threads per (q tile, pair) (forward, dQ) or (k tile, pair)
+// (dK/dV) carries both heads: all 512 threads stage the pair's 64 x 128
+// tiles together, a row's 128 values by neighbouring threads, into one f32
+// tile per lane half, and threadIdx.y = h then runs head 2p + h on its own
+// tiles with the general kernels' D = 64 thread layout and helpers (the
+// 16 threads of a row are still one half of a warp: a warp never spans
+// two values of threadIdx.y). Each head keeps its own m, l and
+// accumulators in its 256 threads' registers, as the TPU kernel keeps two
+// scratch pairs. So every head sums the general kernels' products in their
+// order: the packed kernels give the general kernels' bits at d = 64.
+// Shared memory: 133,120 bytes (forward) and 167,424 bytes (backward), one
+// block of 16 warps a multiprocessor.
+
+#define PK_D 64                    // head dim of one lane half
+#define PK_W (2 * PK_D)            // a packed row
+#define PK_TILE (64 * (PK_D + 1))  // floats of one staged lane-half tile
+
+// Rows [r0, r0 + 64) of both lane halves of a packed (S, 128) matrix X into
+// Xs (half h at Xs + h PK_TILE, rows of PK_D + 1 floats) as f32.
+template <typename T>
+__device__ __forceinline__ void load_pair(float* __restrict__ Xs, const T* __restrict__ X,
+                                          int r0) {
+  const int tid = threadIdx.y * FL_THREADS + threadIdx.x;
+  for (int t = tid; t < 64 * PK_W; t += 2 * FL_THREADS) {
+    const int r = t / PK_W, c = t % PK_W;
+    Xs[(c / PK_D) * PK_TILE + r * (PK_D + 1) + c % PK_D] =
+        to_f32(X[(long long)(r0 + r) * PK_W + c]);
+  }
+}
+
+// Rows [r0, r0 + 64) of lane half threadIdx.y of a packed (S, 128) f32
+// matrix O from an output tile o.
+__device__ __forceinline__ void store_half(float* __restrict__ O, int r0,
+                                           const float (&o)[4][PK_D / 16]) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16, c0 = threadIdx.y * PK_D;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int jj = 0; jj < PK_D / 16; ++jj)
+      O[(long long)(r0 + ty + 16 * i) * PK_W + c0 + tx + 16 * jj] = o[i][jj];
+}
+
+// lse log2(e) and dd of both heads of pair pr at q tile q0 into L2 and DD
+// (head h at offset h BQ).
+__device__ __forceinline__ void load_pair_rows(const FlashArgs& a, int pr, int q0, float* L2,
+                                               float* DD) {
+  const int tid = threadIdx.y * FL_THREADS + threadIdx.x;
+  for (int t = tid; t < 2 * BQ; t += 2 * FL_THREADS) {
+    const long long i = ((long long)pr * 2 + t / BQ) * a.S + q0 + t % BQ;
+    L2[t] = __fmul_rn(a.lse[i], FL_LOG2E);
+    DD[t] = a.dd[i];
+  }
+}
+
+// Grid: x the q tiles, y the pairs.
+template <typename T>
+__global__ void __launch_bounds__(2 * FL_THREADS) flash_fwd_packed_kernel(FlashArgs a) {
+  extern __shared__ float smem[];
+  constexpr int NJ = PK_D / 16;
+  const int h = threadIdx.y, tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int pr = blockIdx.y, q0 = blockIdx.x * BQ;
+  const long long S = a.S, off = (long long)pr * S * PK_W;
+  float* Qs = smem;
+  float* Ks = Qs + 2 * PK_TILE;
+  float* Vs = Ks + 2 * PK_TILE;
+  float* Ps = Vs + 2 * PK_TILE + h * 64 * PST;
+  const float* Qh = Qs + h * PK_TILE;
+  const float* Kh = Ks + h * PK_TILE;
+  const float* Vh = Vs + h * PK_TILE;
+  const T* kp = static_cast<const T*>(a.k) + off;
+  const T* vp = static_cast<const T*>(a.v) + off;
+  load_pair<T>(Qs, static_cast<const T*>(a.q) + off, q0);
+  float acc[4][NJ], m[4], l[4], alpha[4];
+  zero_out<PK_D>(acc);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = FL_NEG_INF;
+    l[i] = 0.0f;
+  }
+  const int nkt = a.causal ? (q0 + BQ - 1) / BK + 1 : a.S / BK;
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();
+    load_pair<T>(Ks, kp, k0);
+    load_pair<T>(Vs, vp, k0);
+    __syncthreads();
+    float s[4][4];
+    tile_abt<PK_D>(Qh, Kh, s);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + ty + 16 * i;
+      float mx = FL_NEG_INF;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float x = __fmul_rn(s[i][j], a.c);
+        if (a.causal && row < k0 + tx + 16 * j) x = FL_NEG_INF;
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+      const float m_new = fmaxf(m[i], max16(mx));
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = exp2f(__fsub_rn(s[i][j], m_new));
+        sum = __fadd_rn(sum, p);
+        s[i][j] = to_f32(from_f32<T>(p));  // p in v's type for P.V
+      }
+      alpha[i] = exp2f(__fsub_rn(m[i], m_new));
+      l[i] = __fadd_rn(__fmul_rn(l[i], alpha[i]), sum16(sum));
+      m[i] = m_new;
+    }
+    store_scores(Ps, s);
+    __syncthreads();
+    float pv[4][NJ];
+    zero_out<PK_D>(pv);
+    tile_pb<PK_D>(Ps, Vh, pv);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj)
+        acc[i][jj] = __fadd_rn(__fmul_rn(acc[i][jj], alpha[i]), pv[i][jj]);
+  }
+  T* o = static_cast<T*>(a.out) + off;
+  float* lse = a.lse_out + ((long long)pr * 2 + h) * S;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    const float safe_l = l[i] > 0.0f ? l[i] : 1.0f;
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj)
+      o[row * PK_W + h * PK_D + tx + 16 * jj] = from_f32<T>(__fdiv_rn(acc[i][jj], safe_l));
+    if (tx == 0) lse[row] = __fadd_rn(__fmul_rn(m[i], FL_LN2), logf(safe_l));
+  }
+}
+
+// dK and dV of k tile kt of pair blockIdx.y, both heads (FUSED: also each
+// live tile's dQ partial into slab plane blockIdx.x, a packed (H2, S, 128)
+// plane). Grid: x the k tiles [kt0, kt1) (FUSED) or all of them, y the
+// pairs. g = 1: the packed arm has no grouped-query sharing.
+template <typename T, bool FUSED>
+__device__ __forceinline__ void bwd_kv_packed_body(const FlashArgs& a) {
+  extern __shared__ float smem[];
+  constexpr int NJ = PK_D / 16;
+  const int h = threadIdx.y;
+  const int kt = (FUSED ? a.kt0 : 0) + blockIdx.x, pr = blockIdx.y, k0 = kt * BK;
+  const long long S = a.S, off = (long long)pr * S * PK_W;
+  float* Ks = smem;
+  float* Vs = Ks + 2 * PK_TILE;
+  float* Qs = Vs + 2 * PK_TILE;
+  float* dOs = Qs + 2 * PK_TILE;
+  float* Ps = dOs + 2 * PK_TILE + h * 64 * PST;
+  float* L2 = dOs + 2 * PK_TILE + 2 * 64 * PST;
+  float* DD = L2 + 2 * BQ;
+  const float* Kh = Ks + h * PK_TILE;
+  const float* Vh = Vs + h * PK_TILE;
+  const float* Qh = Qs + h * PK_TILE;
+  const float* dOh = dOs + h * PK_TILE;
+  const T* qp = static_cast<const T*>(a.q) + off;
+  const T* dop = static_cast<const T*>(a.dout) + off;
+  load_pair<T>(Ks, static_cast<const T*>(a.k) + off, k0);
+  load_pair<T>(Vs, static_cast<const T*>(a.v) + off, k0);
+  float dk[4][NJ], dv[4][NJ];
+  zero_out<PK_D>(dk);
+  zero_out<PK_D>(dv);
+  const int it0 = a.causal ? k0 / BQ : 0;
+  for (int it = it0; it < a.S / BQ; ++it) {
+    const int q0 = it * BQ;
+    __syncthreads();
+    load_pair<T>(Qs, qp, q0);
+    load_pair<T>(dOs, dop, q0);
+    load_pair_rows(a, pr, q0, L2, DD);
+    __syncthreads();
+    float p[4][4], ds[4][4];
+    tile_p_ds<PK_D>(Qh, Kh, dOh, Vh, L2 + h * BQ, DD + h * BQ, q0, k0, a.causal, a.c, a.sc, p,
+                    ds);
+    store_scores(Ps, p);
+    __syncthreads();
+    tile_ptb<PK_D>(Ps, dOh, dv);
+    __syncthreads();
+    store_scores(Ps, ds);
+    __syncthreads();
+    tile_ptb<PK_D>(Ps, Qh, dk);
+    if (FUSED) {
+      float part[4][NJ];
+      zero_out<PK_D>(part);
+      tile_pb<PK_D>(Ps, Kh, part);
+      store_half(a.slab + ((long long)blockIdx.x * a.H + pr) * S * PK_W, q0, part);
+    }
+  }
+  store_half(a.dk + off, k0, dk);
+  store_half(a.dv + off, k0, dv);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(2 * FL_THREADS) flash_bwd_fused_packed_kernel(FlashArgs a) {
+  bwd_kv_packed_body<T, true>(a);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(2 * FL_THREADS) flash_bwd_kv_packed_kernel(FlashArgs a) {
+  bwd_kv_packed_body<T, false>(a);
+}
+
+// dQ of q tile blockIdx.x of pair blockIdx.y, both heads: the live k tiles'
+// dS K in ascending order, each tile's product summed alone and then added.
+template <typename T>
+__global__ void __launch_bounds__(2 * FL_THREADS) flash_bwd_q_packed_kernel(FlashArgs a) {
+  extern __shared__ float smem[];
+  constexpr int NJ = PK_D / 16;
+  const int h = threadIdx.y;
+  const int pr = blockIdx.y, q0 = blockIdx.x * BQ;
+  const long long S = a.S, off = (long long)pr * S * PK_W;
+  float* Ks = smem;
+  float* Vs = Ks + 2 * PK_TILE;
+  float* Qs = Vs + 2 * PK_TILE;
+  float* dOs = Qs + 2 * PK_TILE;
+  float* Ps = dOs + 2 * PK_TILE + h * 64 * PST;
+  float* L2 = dOs + 2 * PK_TILE + 2 * 64 * PST;
+  float* DD = L2 + 2 * BQ;
+  const float* Kh = Ks + h * PK_TILE;
+  const float* Vh = Vs + h * PK_TILE;
+  const float* Qh = Qs + h * PK_TILE;
+  const float* dOh = dOs + h * PK_TILE;
+  const T* kp = static_cast<const T*>(a.k) + off;
+  const T* vp = static_cast<const T*>(a.v) + off;
+  load_pair<T>(Qs, static_cast<const T*>(a.q) + off, q0);
+  load_pair<T>(dOs, static_cast<const T*>(a.dout) + off, q0);
+  load_pair_rows(a, pr, q0, L2, DD);
+  float acc[4][NJ];
+  zero_out<PK_D>(acc);
+  const int nkt = a.causal ? (q0 + BQ - 1) / BK + 1 : a.S / BK;
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();
+    load_pair<T>(Ks, kp, k0);
+    load_pair<T>(Vs, vp, k0);
+    __syncthreads();
+    float p[4][4], ds[4][4];
+    tile_p_ds<PK_D>(Qh, Kh, dOh, Vh, L2 + h * BQ, DD + h * BQ, q0, k0, a.causal, a.c, a.sc, p,
+                    ds);
+    store_scores(Ps, ds);
+    __syncthreads();
+    float part[4][NJ];
+    zero_out<PK_D>(part);
+    tile_pb<PK_D>(Ps, Kh, part);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj) acc[i][jj] = __fadd_rn(acc[i][jj], part[i][jj]);
+  }
+  store_half(a.dq + off, q0, acc);
+}
+
+// ---------------------------------------------------------------------------
 // C interface
 // ---------------------------------------------------------------------------
 
@@ -466,11 +734,12 @@ static size_t smem_bytes(int kind, int D) {
 }
 
 template <typename K>
-static int go(K kernel, dim3 grid, size_t smem, const FlashArgs& a, cudaStream_t st) {
+static int go(K kernel, dim3 grid, size_t smem, const FlashArgs& a, cudaStream_t st,
+              dim3 block = dim3(FL_THREADS)) {
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<grid, FL_THREADS, smem, st>>>(a);
+  kernel<<<grid, block, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -506,6 +775,40 @@ static int dispatch(int dt, int dp, int kind, const FlashArgs& a, void* stream) 
     case DT_F32: return launch_d<float>(dp, kind, a, st);
     case DT_BF16: return launch_d<__nv_bfloat16>(dp, kind, a, st);
     case DT_F16: return launch_d<__half>(dp, kind, a, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The packed kernels: 256 x 2 threads, one stage of both lane halves'
+// tiles (the forward: q, k, v and a score tile per head; the backward:
+// also dO, and both heads' lse and dd rows).
+static size_t smem_bytes_packed(int kind) {
+  if (kind == K_FWD) return (size_t)(6 * PK_TILE + 2 * 64 * PST) * sizeof(float);
+  return (size_t)(8 * PK_TILE + 2 * 64 * PST + 4 * BQ) * sizeof(float);
+}
+
+template <typename T>
+static int launch_packed(int kind, const FlashArgs& a, cudaStream_t st) {
+  const size_t smem = smem_bytes_packed(kind);
+  const dim3 block(FL_THREADS, 2);
+  switch (kind) {
+    case K_FWD: return go(flash_fwd_packed_kernel<T>, dim3(a.S / BQ, a.H), smem, a, st, block);
+    case K_FUSED:
+      return go(flash_bwd_fused_packed_kernel<T>, dim3(a.kt1 - a.kt0, a.H), smem, a, st, block);
+    case K_KV: return go(flash_bwd_kv_packed_kernel<T>, dim3(a.S / BK, a.H), smem, a, st, block);
+    case K_Q: return go(flash_bwd_q_packed_kernel<T>, dim3(a.S / BQ, a.H), smem, a, st, block);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// a.H is the number of pairs H2 and a.d the packed row, 128.
+static int dispatch_packed(int dt, int kind, const FlashArgs& a, void* stream) {
+  if (a.H < 1 || a.H > 65535 || a.S < BQ || a.S % BQ) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dt) {
+    case DT_F32: return launch_packed<float>(kind, a, st);
+    case DT_BF16: return launch_packed<__nv_bfloat16>(kind, a, st);
+    case DT_F16: return launch_packed<__half>(kind, a, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -584,6 +887,64 @@ int accl_flash_bwd_q(int dt, int dp, const void* q, const void* k, const void* v
   a.dq = static_cast<float*>(dq);
   a.sc = sc;
   return dispatch(dt, dp, K_Q, a, stream);
+}
+
+// The packed forward: q, k, v and out (H2, S, 128) in type dt, head 2p + h
+// on lane half h of pair p; lse (H2, 2, S) f32.
+int accl_flash_fwd_packed(int dt, const void* q, const void* k, const void* v, void* out,
+                          void* lse, int H2, int S, int causal, float c, void* stream) {
+  FlashArgs a = args(q, k, v, H2, H2, S, PK_W, causal, c);
+  a.out = out;
+  a.lse_out = static_cast<float*>(lse);
+  return dispatch_packed(dt, K_FWD, a, stream);
+}
+
+// One launch of the packed fused backward over k tiles [kt0, kt1): dk and
+// dv (H2, S, 128) f32 of those tiles' rows, their dQ partials into slab
+// (at least kt1 - kt0 planes of (H2, S, 128) f32); lse and dd (H2, 2, S).
+int accl_flash_bwd_fused_packed(int dt, const void* q, const void* k, const void* v,
+                                const void* dout, const void* lse, const void* dd, void* dk,
+                                void* dv, void* slab, int H2, int S, int causal, float c, float sc,
+                                int kt0, int kt1, void* stream) {
+  if (kt0 < 0 || kt1 > S / BK || kt0 >= kt1) return (int)cudaErrorInvalidValue;
+  FlashArgs a = args(q, k, v, H2, H2, S, PK_W, causal, c);
+  a.dout = dout;
+  a.lse = static_cast<const float*>(lse);
+  a.dd = static_cast<const float*>(dd);
+  a.dk = static_cast<float*>(dk);
+  a.dv = static_cast<float*>(dv);
+  a.slab = static_cast<float*>(slab);
+  a.sc = sc;
+  a.kt0 = kt0;
+  a.kt1 = kt1;
+  return dispatch_packed(dt, K_FUSED, a, stream);
+}
+
+// The packed two-pass backward's dK/dV: dk and dv (H2, S, 128) f32.
+int accl_flash_bwd_kv_packed(int dt, const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse, const void* dd, void* dk, void* dv,
+                             int H2, int S, int causal, float c, float sc, void* stream) {
+  FlashArgs a = args(q, k, v, H2, H2, S, PK_W, causal, c);
+  a.dout = dout;
+  a.lse = static_cast<const float*>(lse);
+  a.dd = static_cast<const float*>(dd);
+  a.dk = static_cast<float*>(dk);
+  a.dv = static_cast<float*>(dv);
+  a.sc = sc;
+  return dispatch_packed(dt, K_KV, a, stream);
+}
+
+// The packed two-pass backward's dQ: dq (H2, S, 128) f32.
+int accl_flash_bwd_q_packed(int dt, const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse, const void* dd, void* dq, int H2,
+                            int S, int causal, float c, float sc, void* stream) {
+  FlashArgs a = args(q, k, v, H2, H2, S, PK_W, causal, c);
+  a.dout = dout;
+  a.lse = static_cast<const float*>(lse);
+  a.dd = static_cast<const float*>(dd);
+  a.dq = static_cast<float*>(dq);
+  a.sc = sc;
+  return dispatch_packed(dt, K_Q, a, stream);
 }
 
 // dq (H, S, d) f32 += the slab's planes of k tiles [kt0, kt1), in order.

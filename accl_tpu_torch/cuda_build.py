@@ -181,6 +181,19 @@ def _declare_flash(lib: ctypes.CDLL) -> None:
     lib.accl_flash_dq_reduce.argtypes = [c_p, c_p, c_int, c_int, c_int,
                                          c_int, c_int, c_int, c_p]
     lib.accl_flash_dq_reduce.restype = c_int
+    lib.accl_flash_fwd_packed.argtypes = [c_int, *[c_p] * 5, c_int, c_int,
+                                          c_int, c_f, c_p]
+    lib.accl_flash_fwd_packed.restype = c_int
+    lib.accl_flash_bwd_fused_packed.argtypes = [c_int, *[c_p] * 9, c_int,
+                                                c_int, c_int, c_f, c_f,
+                                                c_int, c_int, c_p]
+    lib.accl_flash_bwd_fused_packed.restype = c_int
+    lib.accl_flash_bwd_kv_packed.argtypes = [c_int, *[c_p] * 8, c_int,
+                                             c_int, c_int, c_f, c_f, c_p]
+    lib.accl_flash_bwd_kv_packed.restype = c_int
+    lib.accl_flash_bwd_q_packed.argtypes = [c_int, *[c_p] * 7, c_int, c_int,
+                                            c_int, c_f, c_f, c_p]
+    lib.accl_flash_bwd_q_packed.restype = c_int
 
 
 def _declare_decode(lib: ctypes.CDLL) -> None:

@@ -26,6 +26,26 @@ kernel on CUDA tensors (or raises; there is no fallback):
 * :func:`flash_bwd_q` replaces ``flash.py:_bwd_q_kernel`` (row 24), the
   two-pass backward's dQ. Kernel: ``csrc/flash.cu:flash_bwd_q_kernel``.
 
+The head-packed d=64 arm, :func:`flash_attention_packed`, pairs heads 2p
+and 2p + 1 on the two 64-lane halves of a 128-wide row (q, k and v packed
+(H/2, S, 128), lse and dd (H/2, 2, S)) and runs four kernels of its own,
+one block carrying both heads of a pair, each head with its own m, l and
+accumulators:
+
+* :func:`flash_fwd_packed` replaces ``flash.py:_kernel_packed`` (row 25).
+  Kernel: ``csrc/flash.cu:flash_fwd_packed_kernel``.
+* :func:`flash_bwd_fused_packed` replaces
+  ``flash.py:_bwd_fused_kernel_packed`` (row 26). Kernel:
+  ``csrc/flash.cu:flash_bwd_fused_packed_kernel``, with
+  ``flash_dq_reduce_kernel`` over the packed slab.
+* :func:`flash_bwd_kv_packed` replaces ``flash.py:_bwd_kv_kernel_packed``
+  (row 27). Kernel: ``csrc/flash.cu:flash_bwd_kv_packed_kernel``.
+* :func:`flash_bwd_q_packed` replaces ``flash.py:_bwd_q_kernel_packed``
+  (row 28). Kernel: ``csrc/flash.cu:flash_bwd_q_packed_kernel``.
+
+Each head of a pair runs the general kernels' arithmetic, so the packed
+arm gives the general arm's bits at d 64, on the CPU and on the card.
+
 The plain versions follow the TPU kernels' arithmetic block by block: scores
 scaled by ``scale * log2(e)`` and exponentiated with exp2, the -1e30
 sentinel, the ``safe_l`` guard, the causal dead-block test on element ranges
@@ -62,8 +82,8 @@ plain version, :func:`plain_paged_decode`:
   Kernel: ``csrc/decode.cu:flash_decode_span_kernel``.
 
 Where a plan declines, or in mode "unpaged", the gathered-chain reference
-runs, counted per reason. The head-packed d=64 arm and the speculative
-and handoff helpers are not ported yet (``ROADMAP.md`` items 12 and 14).
+runs, counted per reason. The speculative and handoff helpers are not
+ported yet (``ROADMAP.md`` item 14).
 """
 from __future__ import annotations
 
@@ -441,17 +461,27 @@ def flash_fwd(q, k, v, causal: bool, scale: float, block_q: int = 128,
 flash_fwd.launches = 0
 
 
-def _bwd_operands(what: str, q, k, v, do, lse, dd):
+def _bwd_operands(what: str, q, k, v, do, lse, dd, rows=None):
+    """:func:`_card_operands` and the backward's own: do like q, lse and dd
+    f32 of shape ``rows``, (H, S) unless given."""
     code, dp = _card_operands(what, q, k, v, (do, lse, dd))
-    H, S, _ = q.shape
+    rows = rows or tuple(q.shape[:2])
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"{what}: do {tuple(do.shape)} {do.dtype} does not "
                          f"match q {tuple(q.shape)} {q.dtype}")
     for name, t in (("lse", lse), ("dd", dd)):
-        if tuple(t.shape) != (H, S) or t.dtype != _F32:
-            raise ValueError(f"{what}: {name} must be (H, S) f32, got "
+        if tuple(t.shape) != rows or t.dtype != _F32:
+            raise ValueError(f"{what}: {name} must be {rows} f32, got "
                              f"{tuple(t.shape)} {t.dtype}")
     return code, dp
+
+
+def _slab_run(nkt: int, plane_bytes: int) -> int:
+    """k tiles of one fused-backward launch: as many runs as
+    ``_DQ_SLAB_BUDGET`` needs for ``nkt`` dQ planes of ``plane_bytes``, as
+    even as the runs allow."""
+    runs = -(-nkt // max(1, _DQ_SLAB_BUDGET // plane_bytes))
+    return -(-nkt // runs)
 
 
 def flash_bwd_fused(q, k, v, do, lse, dd, causal: bool, scale: float,
@@ -471,8 +501,7 @@ def flash_bwd_fused(q, k, v, do, lse, dd, causal: bool, scale: float,
     dk = torch.empty((hkv, S, d), dtype=_F32, device=q.device)
     dv = torch.empty((hkv, S, d), dtype=_F32, device=q.device)
     nkt = S // _CARD_TILE
-    runs = -(-nkt // max(1, _DQ_SLAB_BUDGET // (H * S * d * 4)))
-    run = -(-nkt // runs)         # k tiles a launch, as even as runs allow
+    run = _slab_run(nkt, H * S * d * 4)
     slab = torch.empty((run, H, S, d), dtype=_F32, device=q.device)
     for kt0 in range(0, nkt, run):
         kt1 = min(nkt, kt0 + run)
@@ -539,22 +568,27 @@ flash_bwd_q.launches = 0
 # autograd and entry points
 # ---------------------------------------------------------------------------
 
-def _bwd_from_dd(q, k, v, do, lse, dd, causal, sc, block_q, block_k, bwd):
+def _bwd_from_dd(q, k, v, do, lse, dd, causal, sc, block_q, block_k, bwd,
+                 kernels=None):
     """The shared backward: ``dd`` (H, S) is rowsum(dO ∘ O), less dlse when
     lse has a cotangent. Mode "fused" runs the fused kernel where the JAX
     backward policy finds a geometry; otherwise, or in mode "two_pass", the
-    dK/dV and dQ pair runs at the forward's blocks."""
+    dK/dV and dQ pair runs at the forward's blocks. ``kernels``: the
+    (fused, dK/dV, dQ) wrappers, the general ones by default; the packed
+    arm passes its own, whose q is (H/2, S, 128), so the policy sees the
+    packed tile's 128 lanes as the JAX packed backward does."""
+    fused, bwd_kv, bwd_q = kernels or (flash_bwd_fused, flash_bwd_kv,
+                                       flash_bwd_q)
     H, S, d = q.shape
     cpu = q.device.type != "cuda"
     if bwd == "fused":
         dp = -(-d // 128) * 128
         blocks = _bwd_default_blocks(S, dp, causal, _itemsize(q.dtype), cpu)
         if blocks is not None:
-            dq, dk, dv = flash_bwd_fused(q, k, v, do, lse, dd, causal, sc,
-                                         *blocks)
+            dq, dk, dv = fused(q, k, v, do, lse, dd, causal, sc, *blocks)
             return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
-    dk, dv = flash_bwd_kv(q, k, v, do, lse, dd, causal, sc, block_q, block_k)
-    dq = flash_bwd_q(q, k, v, do, lse, dd, causal, sc, block_q, block_k)
+    dk, dv = bwd_kv(q, k, v, do, lse, dd, causal, sc, block_q, block_k)
+    dq = bwd_q(q, k, v, do, lse, dd, causal, sc, block_q, block_k)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -629,6 +663,265 @@ def flash_attention_lse(q, k, v, causal: bool = False,
                             bwd_mode)
     out, lse = _Flash.apply(*args)
     return (out[0], lse[0]) if single else (out, lse)
+
+
+# ---------------------------------------------------------------------------
+# the head-packed d=64 arm (``accl_tpu/ops/flash.py:830-1311``)
+# ---------------------------------------------------------------------------
+
+#: the one head dim the packed arm takes: a head pair fills a 128-wide row
+_PACKED_D = 64
+
+
+def _pack_heads(x):
+    """(H, S, d) -> (H/2, S, 2d): heads 2p and 2p + 1 share row s of pair
+    p, ``packed[p, s, h d + c] = x[2p + h, s, c]``. A relayout of the same
+    bytes (a copy), not a pad."""
+    H, S, d = x.shape
+    return x.reshape(H // 2, 2, S, d).transpose(1, 2).reshape(H // 2, S,
+                                                              2 * d)
+
+
+def _unpack_heads(x):
+    """Inverse of :func:`_pack_heads`."""
+    H2, S, d2 = x.shape
+    return x.reshape(H2, S, 2, d2 // 2).transpose(1, 2).reshape(
+        2 * H2, S, d2 // 2)
+
+
+def plain_flash_fwd_packed(q, k, v, causal: bool, scale: float,
+                           block_q: int = 128, block_k: int = 128):
+    """(out (H2, S, 128) in q's dtype, lse (H2, 2, S) f32 natural log) of
+    the packed forward kernel, on packed q, k and v (H2, S, 128): lane half
+    h of pair p is head 2p + h, whose online softmax is
+    :func:`plain_flash_fwd`'s (the TPU kernel runs the general kernel's
+    step on each half, with its own m and l)."""
+    H2, S, _ = q.shape
+    out, lse = plain_flash_fwd(_unpack_heads(q), _unpack_heads(k),
+                               _unpack_heads(v), causal, scale, block_q,
+                               block_k)
+    return _pack_heads(out), lse.reshape(H2, 2, S)
+
+
+def _plain_bwd_packed(q, k, v, do, lse, dd, causal: bool, sc: float,
+                      block_q: int, block_k: int, want_dq: bool,
+                      want_dkv: bool):
+    """:func:`_plain_bwd` per lane half (g = 1) on packed operands; lse and
+    dd (H2, 2, S), the gradients packed (H2, S, 128) f32."""
+    H2, S, _ = q.shape
+    grads = _plain_bwd(*(_unpack_heads(t) for t in (q, k, v, do)),
+                       lse.reshape(2 * H2, S), dd.reshape(2 * H2, S), causal,
+                       sc, block_q, block_k, want_dq, want_dkv)
+    return tuple(None if t is None else _pack_heads(t) for t in grads)
+
+
+def plain_flash_bwd_fused_packed(q, k, v, do, lse, dd, causal: bool,
+                                 scale: float, block_q: int = 128,
+                                 block_k: int = 128):
+    """(dq, dk, dv) (H2, S, 128) f32 of the packed fused backward kernel,
+    from lse and the per-half row term dd = rowsum(dO ∘ O), (H2, 2, S)."""
+    return _plain_bwd_packed(q, k, v, do, lse, dd, causal, scale, block_q,
+                             block_k, True, True)
+
+
+def plain_flash_bwd_kv_packed(q, k, v, do, lse, dd, causal: bool,
+                              scale: float, block_q: int = 128,
+                              block_k: int = 128):
+    """(dk, dv) f32 of the packed two-pass backward's dK/dV kernel."""
+    return _plain_bwd_packed(q, k, v, do, lse, dd, causal, scale, block_q,
+                             block_k, False, True)[1:]
+
+
+def plain_flash_bwd_q_packed(q, k, v, do, lse, dd, causal: bool,
+                             scale: float, block_q: int = 128,
+                             block_k: int = 128):
+    """dq f32 of the packed two-pass backward's dQ kernel."""
+    return _plain_bwd_packed(q, k, v, do, lse, dd, causal, scale, block_q,
+                             block_k, True, False)[0]
+
+
+def _packed_operands(what: str, q, k, v):
+    """What the packed kernels take: :func:`_card_operands`'s operands with
+    q, k and v all (H2, S, 128). Returns the dtype code."""
+    code, _ = _card_operands(what, q, k, v)
+    if q.shape[2] != 2 * _PACKED_D or k.shape[0] != q.shape[0]:
+        raise ValueError(f"{what} takes packed q, k and v (H2, S, "
+                         f"{2 * _PACKED_D}), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    return code
+
+
+def _packed_bwd_operands(what: str, q, k, v, do, lse, dd):
+    code = _packed_operands(what, q, k, v)
+    _bwd_operands(what, q, k, v, do, lse, dd, (q.shape[0], 2, q.shape[1]))
+    return code
+
+
+def flash_fwd_packed(q, k, v, causal: bool, scale: float, block_q: int = 128,
+                     block_k: int = 128):
+    """Kernel 25 (replaces ``flash.py:_kernel_packed``). Same contract as
+    :func:`plain_flash_fwd_packed`; the blocks shape the plain version
+    only."""
+    if q.device.type != "cuda":
+        return plain_flash_fwd_packed(q, k, v, causal, scale, block_q,
+                                      block_k)
+    code = _packed_operands("flash_fwd_packed_kernel", q, k, v)
+    H2, S, _ = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((H2, 2, S), dtype=_F32, device=q.device)
+    _call("flash_fwd_packed_kernel", "accl_flash_fwd_packed", code, _ptr(q),
+          _ptr(k), _ptr(v), _ptr(out), _ptr(lse), H2, S, int(causal),
+          ctypes.c_float(scale * _LOG2E), device=q.device)
+    flash_fwd_packed.launches += 1
+    return out, lse
+
+
+flash_fwd_packed.launches = 0
+
+
+def flash_bwd_fused_packed(q, k, v, do, lse, dd, causal: bool, scale: float,
+                           block_q: int = 128, block_k: int = 128):
+    """Kernel 26 (replaces ``flash.py:_bwd_fused_kernel_packed``). Same
+    contract as :func:`plain_flash_bwd_fused_packed`. As
+    :func:`flash_bwd_fused`: one launch of ``flash_bwd_fused_packed_kernel``
+    per run of k tiles whose packed dQ partials fit ``_DQ_SLAB_BUDGET``,
+    each followed by ``flash_dq_reduce_kernel`` over the slab viewed as
+    (H2, S, 128); the counter counts the former."""
+    if q.device.type != "cuda":
+        return plain_flash_bwd_fused_packed(q, k, v, do, lse, dd, causal,
+                                            scale, block_q, block_k)
+    code = _packed_bwd_operands("flash_bwd_fused_packed_kernel", q, k, v, do,
+                                lse, dd)
+    H2, S, d2 = q.shape
+    dq = torch.zeros((H2, S, d2), dtype=_F32, device=q.device)
+    dk = torch.empty((H2, S, d2), dtype=_F32, device=q.device)
+    dv = torch.empty((H2, S, d2), dtype=_F32, device=q.device)
+    nkt = S // _CARD_TILE
+    run = _slab_run(nkt, H2 * S * d2 * 4)
+    slab = torch.empty((run, H2, S, d2), dtype=_F32, device=q.device)
+    for kt0 in range(0, nkt, run):
+        kt1 = min(nkt, kt0 + run)
+        _call("flash_bwd_fused_packed_kernel", "accl_flash_bwd_fused_packed",
+              code, _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(dd),
+              _ptr(dk), _ptr(dv), _ptr(slab), H2, S, int(causal),
+              ctypes.c_float(scale * _LOG2E), ctypes.c_float(scale), kt0,
+              kt1, device=q.device)
+        flash_bwd_fused_packed.launches += 1
+        _call("flash_dq_reduce_kernel", "accl_flash_dq_reduce", _ptr(dq),
+              _ptr(slab), H2, S, d2, int(causal), kt0, kt1, device=q.device)
+    return dq, dk, dv
+
+
+flash_bwd_fused_packed.launches = 0
+
+
+def flash_bwd_kv_packed(q, k, v, do, lse, dd, causal: bool, scale: float,
+                        block_q: int = 128, block_k: int = 128):
+    """Kernel 27 (replaces ``flash.py:_bwd_kv_kernel_packed``). Same
+    contract as :func:`plain_flash_bwd_kv_packed`."""
+    if q.device.type != "cuda":
+        return plain_flash_bwd_kv_packed(q, k, v, do, lse, dd, causal, scale,
+                                         block_q, block_k)
+    code = _packed_bwd_operands("flash_bwd_kv_packed_kernel", q, k, v, do,
+                                lse, dd)
+    H2, S, d2 = q.shape
+    dk = torch.empty((H2, S, d2), dtype=_F32, device=q.device)
+    dv = torch.empty((H2, S, d2), dtype=_F32, device=q.device)
+    _call("flash_bwd_kv_packed_kernel", "accl_flash_bwd_kv_packed", code,
+          _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(dd), _ptr(dk),
+          _ptr(dv), H2, S, int(causal), ctypes.c_float(scale * _LOG2E),
+          ctypes.c_float(scale), device=q.device)
+    flash_bwd_kv_packed.launches += 1
+    return dk, dv
+
+
+flash_bwd_kv_packed.launches = 0
+
+
+def flash_bwd_q_packed(q, k, v, do, lse, dd, causal: bool, scale: float,
+                       block_q: int = 128, block_k: int = 128):
+    """Kernel 28 (replaces ``flash.py:_bwd_q_kernel_packed``). Same
+    contract as :func:`plain_flash_bwd_q_packed`."""
+    if q.device.type != "cuda":
+        return plain_flash_bwd_q_packed(q, k, v, do, lse, dd, causal, scale,
+                                        block_q, block_k)
+    code = _packed_bwd_operands("flash_bwd_q_packed_kernel", q, k, v, do,
+                                lse, dd)
+    H2, S, d2 = q.shape
+    dq = torch.empty((H2, S, d2), dtype=_F32, device=q.device)
+    _call("flash_bwd_q_packed_kernel", "accl_flash_bwd_q_packed", code,
+          _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(dd), _ptr(dq),
+          H2, S, int(causal), ctypes.c_float(scale * _LOG2E),
+          ctypes.c_float(scale), device=q.device)
+    flash_bwd_q_packed.launches += 1
+    return dq
+
+
+flash_bwd_q_packed.launches = 0
+
+_PACKED_KERNELS = (flash_bwd_fused_packed, flash_bwd_kv_packed,
+                   flash_bwd_q_packed)
+
+
+class _FlashPacked(torch.autograd.Function):
+    """The packed arm's forward and backward (the JAX custom VJP
+    ``_flash_packed``) on packed q, k and v (H2, S, 128): the forward saves
+    q, k, v, out and lse (H2, 2, S); the backward takes dd as the row sum of
+    dO ∘ O over each lane half on its own (one head each), as the JAX
+    backward does, and runs the packed fused kernel or the packed two-pass
+    pair under the JAX policy at the packed tile's 128 lanes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sc, blocks, bwd):
+        out, lse = flash_fwd_packed(q, k, v, causal, sc, *blocks)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = (causal, sc, *blocks, bwd)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        do = do.to(q.dtype).contiguous()
+        H2, S, d2 = q.shape
+        dd = (do.float() * out.float()).reshape(H2, S, 2, d2 // 2).sum(-1)
+        grads = _bwd_from_dd(q, k, v, do, lse, dd.transpose(1, 2).contiguous(),
+                             *ctx.opts, kernels=_PACKED_KERNELS)
+        return (*grads, None, None, None, None)
+
+
+def _packed_blocks(S: int, causal: bool, block_q: Optional[int],
+                   block_k: Optional[int], itemsize: int, cpu: bool):
+    """The packed forward's (block_q, block_k): the JAX packed entry's
+    ``_default_blocks`` at the packed tile's width, 2d = 128."""
+    return _default_blocks(S, 2 * _PACKED_D, causal, block_q, block_k,
+                           itemsize, cpu)
+
+
+def flash_attention_packed(q, k, v, causal: bool = False,
+                           scale: Optional[float] = None,
+                           block_q: Optional[int] = None,
+                           block_k: Optional[int] = None,
+                           bwd_mode: Optional[str] = None):
+    """Head-packed flash attention for d == 64 exactly: heads 2p and 2p + 1
+    share a 128-wide row of pair p (:func:`_pack_heads`), and kernels 25-28
+    run both heads of a pair in one block. Same semantics and gradients as
+    :func:`flash_attention`. Outside the JAX package's envelope (q not (H,
+    S, d), an odd H, d != 64, or grouped-query k/v) it returns
+    :func:`flash_attention`, as the JAX entry does."""
+    if (q.dim() != 3 or q.shape[0] % 2 or q.shape[-1] != _PACKED_D
+            or k.shape[0] != q.shape[0]):
+        return flash_attention(q, k, v, causal=causal, scale=scale,
+                               block_q=block_q, block_k=block_k,
+                               bwd_mode=bwd_mode)
+    bwd = _resolve_bwd(bwd_mode)
+    H, S, d = q.shape
+    blocks = _packed_blocks(S, causal, block_q, block_k, _itemsize(q.dtype),
+                            q.device.type != "cuda")
+    _check_shapes(q, k, v, S, d, *blocks)
+    sc = scale if scale is not None else 1.0 / (d ** 0.5)
+    out = _FlashPacked.apply(_pack_heads(q), _pack_heads(k), _pack_heads(v),
+                             causal, sc, blocks, bwd)
+    return _unpack_heads(out)
 
 
 # ---------------------------------------------------------------------------

@@ -37,6 +37,11 @@ any failure exits non-zero and nothing is caught and skipped:
    runs and between the fused and the two-pass arm; the entry points under
    both backward modes, with and without an lse cotangent, at S 1024 and
    at S 16384, where the JAX backward policy sends the fused mode to the
+   two-pass pair), the four kernels of its head-packed d 64 arm (f32 and
+   bf16, causal and not, H 2, 4 and 96, S 128, 1024 and 2048: the same
+   limits, and bit-equal to the general kernels on the unpacked heads;
+   ``flash_attention_packed`` under both backward modes at S 1024 and at
+   S 16384 causal, where the policy sends the fused mode to the packed
    two-pass pair), and the two paged decode kernels at K-EXAONE-236B's
    global-attention width (f32, bf16 and int8 pools, int8 with per-page
    scales, lengths 0, one page and full capacity, prefill chunks from 0,
@@ -137,6 +142,19 @@ any failure exits non-zero and nothing is caught and skipped:
       the flat step within 1e-4; then ``build_pipeline_relay`` PALLAS
       against XLA from 4 KiB to 64 MiB per rank, exact; p50, tokens/s,
       bubble, stash slots, launches and the relay's share of each arm;
+   l. the head-packed flash arm at Switch-Base-8's attention width (12
+      heads of 64; world 8 at 2048 tokens per rank, ranks x heads on the
+      leading axis: q, k and v (96, 2048, 64)), f32 and bf16, non-causal
+      (the encoder) and causal (the decoder): ``flash_attention_packed``
+      forward, and forward and backward in both backward modes (packed
+      kernels only: flash_fwd_packed_kernel once a forward,
+      flash_bwd_fused_packed_kernel or the packed two-pass pair once a
+      backward), against ``flash_attention`` at d 64 (general kernels
+      only) and, in f32, float64 on two heads; fused and two-pass
+      gradients bit-equal; p50 and tokens/s of both arms and of
+      ``scaled_dot_product_attention`` (timed only); an odd head count
+      through the packed entry launches general kernels only; the pack
+      and unpack copies timed on their own;
 4. print the ``kernels`` line, the card line and, last, the device line.
 
 Exits 2 without printing a result when no CUDA device is visible.
@@ -1547,6 +1565,252 @@ def measure_flash_kernels(gen) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2: the head-packed flash kernels (rows 25-28)
+# ---------------------------------------------------------------------------
+
+#: Switch-Base-8's attention (``google/switch-base-8``: d_model 768 as 12
+#: heads of d_kv 64) at phases 3e and 3h's world 8 and 2048 tokens per
+#: rank; ranks x heads form the leading axis, so q, k and v are (96, 2048,
+#: 64), packed (48, 2048, 128)
+PACKED = {"H": SWITCH["P"] * 12, "S": SWITCH["n"], "d": 64}
+
+
+def pack_operands(gen, H: int, S: int, dtype):
+    """Random q, k, v and an output cotangent (H, S, 64) in dtype, then the
+    same four packed, (H/2, S, 128)."""
+    from accl_tpu_torch.ops import flash as fl
+    heads = attn_operands(gen, H, H, S, PACKED["d"], dtype)
+    return heads, [fl._pack_heads(t) for t in heads]
+
+
+def check_flash_packed_kernels(gen) -> None:
+    """Rows 25-28 against their plain versions on the card, f32 within 1e-5
+    and bf16 within 1e-2 of each tensor's largest magnitude, and against
+    the general kernels (rows 21-24) on the unpacked heads, bit for bit:
+    f32 and bf16, causal and not, H 2, 4 and 96, S 128, 1024 and 2048.
+    Every backward twice: the two runs, and the fused and the two-pass
+    arms, bit-equal. Then ``flash_attention_packed`` under ``bwd_mode``
+    fused and two_pass at S 1024 and at S 16384 causal, where the JAX
+    backward policy answers None and sends the fused mode to the packed
+    two-pass pair: the counters must show the arm the policy picks and no
+    general kernel, the gradients match the plain versions."""
+    import torch
+    from accl_tpu_torch.ops import flash as fl
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(2, 128, False, f32), (4, 128, True, bf16),
+             (2, 1024, True, bf16), (4, 1024, False, f32),
+             (96, 2048, False, f32), (96, 2048, True, f32),
+             (96, 2048, True, bf16), (4, 2048, False, bf16)]
+    worst = {}
+    for H, S, causal, dt in cases:
+        case = f"H {H} S {S} causal {causal} {dt}"
+        rel = 1e-5 if dt == f32 else 1e-2
+        (q, k, v, do), packed = pack_operands(gen, H, S, dt)
+        qp, kp, vp, dop = packed
+        sc = PACKED["d"] ** -0.5
+        out, lse = fl.flash_fwd_packed(qp, kp, vp, causal, sc)
+        pout, plse = fl.plain_flash_fwd_packed(qp, kp, vp, causal, sc)
+        errs = [near(f"flash_fwd_packed_kernel out {case}", out, pout, rel),
+                near(f"flash_fwd_packed_kernel lse {case}", lse, plse, rel)]
+        gout, glse = fl.flash_fwd(q, k, v, causal, sc)
+        if not (torch.equal(fl._unpack_heads(out), gout)
+                and torch.equal(lse.reshape(H, S), glse)):
+            fail(f"flash_fwd_packed_kernel {case}: bits differ from "
+                 f"flash_fwd_kernel's on the unpacked heads")
+        dd = (dop.float() * out.float()).reshape(H // 2, S, 2, 64).sum(-1) \
+            .transpose(1, 2).contiguous() - torch.randn(
+                (H // 2, 2, S), generator=gen, device="cuda")
+        args = (qp, kp, vp, dop, lse, dd, causal, sc)
+        fused = [fl.flash_bwd_fused_packed(*args) for _ in range(2)]
+        two = [(fl.flash_bwd_q_packed(*args), *fl.flash_bwd_kv_packed(*args))
+               for _ in range(2)]
+        plain = fl.plain_flash_bwd_fused_packed(*args)
+        pkv = fl.plain_flash_bwd_kv_packed(*args)
+        pq = fl.plain_flash_bwd_q_packed(*args)
+        general = fl.flash_bwd_fused(q, k, v, do, glse, dd.reshape(H, S),
+                                     causal, sc)
+        for i, name in enumerate(("dq", "dk", "dv")):
+            errs.append(near(f"flash_bwd_fused_packed_kernel {name} {case}",
+                             fused[0][i], plain[i], rel))
+            errs.append(near(
+                f"flash_bwd_{'q' if i == 0 else 'kv'}_packed_kernel {name} "
+                f"{case}", two[0][i], pq if i == 0 else pkv[i - 1], rel))
+            for other, what in ((fused[1][i], "a second fused run"),
+                                (two[0][i], "the two-pass pair"),
+                                (two[1][i], "a second two-pass run")):
+                if not torch.equal(fused[0][i], other):
+                    fail(f"packed flash backward {name} {case}: the fused "
+                         f"kernel's bits differ from {what}")
+            if not torch.equal(fl._unpack_heads(fused[0][i]), general[i]):
+                fail(f"packed flash backward {name} {case}: bits differ "
+                     f"from flash_bwd_fused_kernel's on the unpacked heads")
+        worst[case] = max(errs)
+        del q, k, v, do, packed, qp, kp, vp, dop, out, lse, pout, plse, gout
+        del glse, dd, args, fused, two, plain, pkv, pq, general
+    torch.cuda.empty_cache()
+    log(f"  packed flash kernels: {len(cases)} cases, each bit-equal to the "
+        f"general kernels at d 64, each backward bit-equal over two runs and "
+        f"across the arms; worst error / max per case {json.dumps(worst)}")
+    check_flash_packed_entry(gen)
+
+
+def check_flash_packed_entry(gen) -> None:
+    import torch
+    from accl_tpu_torch.ops import flash as fl
+
+    for H, S in ((4, 1024), (2, 16384)):
+        (q, k, v, do), _ = pack_operands(gen, H, S, torch.float32)
+        sc = PACKED["d"] ** -0.5
+        pout, plse = fl.plain_flash_fwd(q, k, v, True, sc)
+        dd = (do * pout).sum(-1)
+        want = fl.plain_flash_bwd_fused(q, k, v, do, plse, dd, True, sc)
+        arm = fl._bwd_default_blocks(S, 2 * PACKED["d"], True, 4)
+        for mode in ("fused", "two_pass"):
+            case = f"H {H} S {S} bwd_mode {mode}"
+            (o, grads), c = launched(lambda: step(
+                lambda *t: fl.flash_attention_packed(*t, causal=True,
+                                                     bwd_mode=mode),
+                (q, k, v), do))
+            fused = mode == "fused" and arm is not None
+            want_l = {"flash_fwd_packed_kernel": 1}
+            if fused:
+                want_l["flash_bwd_fused_packed_kernel"] = 1
+            else:
+                want_l.update(flash_bwd_kv_packed_kernel=1,
+                              flash_bwd_q_packed_kernel=1)
+            if c != want_l:
+                fail(f"packed flash entry point {case} (policy {arm}) "
+                     f"launched {json.dumps(c)}")
+            near(f"packed flash entry point out {case}", o, pout, 1e-5)
+            for t, w, name in zip(grads, want, ("dq", "dk", "dv")):
+                near(f"packed flash entry point {name} {case}", t, w, 1e-5)
+        log(f"  packed flash entry point at H {H} S {S}: the JAX backward "
+            f"policy gives {arm}, so bwd_mode fused runs "
+            f"{'the fused kernel' if arm else 'the two-pass pair'}; outputs "
+            f"and gradients match the plain versions")
+        del q, k, v, do, pout, plse, dd, want
+    torch.cuda.empty_cache()
+
+
+def measure_flash_packed_kernels(gen) -> dict:
+    """Rows 25-28 at the shape phase 3l gives them (:data:`PACKED`: q, k
+    and v (96, 2048, 64), packed (48, 2048, 128)), f32, non-causal (the
+    encoder's attention) and causal (the decoder's): kernel, plain version,
+    the general kernel (rows 21-24) on the unpacked heads, and
+    ``scaled_dot_product_attention`` on (1, 96, 2048, 64) (the forward;
+    the backward as forward plus backward less forward, row 26's yardstick
+    and the two-pass pair's together). Bounds as rows 21-24's: the useful
+    flops over the CUDA cores' f32 rate, or the bytes over 3.35 TB/s where
+    larger, the TF32 tensor cores' bound beside. The entry carries the
+    non-causal figures, the causal ones beside them."""
+    import torch
+    import torch.nn.functional as F
+    from accl_tpu_torch.ops import flash as fl
+
+    H, S, d = PACKED["H"], PACKED["S"], PACKED["d"]
+    peak = f32_peak_flops()
+    sc = d ** -0.5
+    hsd = H * S * d
+    io = {"flash_fwd_packed_kernel": 4 * hsd * 4 + H * S * 4,
+          "flash_bwd_fused_packed_kernel": 4 * hsd * 4 + 2 * H * S * 4
+          + 3 * hsd * 4,
+          "flash_bwd_kv_packed_kernel": 4 * hsd * 4 + 2 * H * S * 4
+          + 2 * hsd * 4,
+          "flash_bwd_q_packed_kernel": 4 * hsd * 4 + 2 * H * S * 4
+          + hsd * 4}
+    res = {}
+    for causal in (False, True):
+        fwd = flash_flops(H, S, d, causal)
+        flops = {"flash_fwd_packed_kernel": fwd,
+                 "flash_bwd_fused_packed_kernel": 5 * fwd // 2,
+                 "flash_bwd_kv_packed_kernel": 2 * fwd,
+                 "flash_bwd_q_packed_kernel": 3 * fwd // 2}
+        (q, k, v, do), (qp, kp, vp, dop) = pack_operands(gen, H, S,
+                                                         torch.float32)
+        out, lse = fl.flash_fwd_packed(qp, kp, vp, causal, sc)
+        dd = (dop * out).reshape(H // 2, S, 2, d).sum(-1).transpose(
+            1, 2).contiguous()
+        args = (qp, kp, vp, dop, lse, dd, causal, sc)
+        gargs = (q, k, v, do, lse.reshape(H, S), dd.reshape(H, S), causal,
+                 sc)
+        q4, k4, v4 = (t[None].detach().requires_grad_() for t in (q, k, v))
+        do4 = do[None]
+
+        def sdpa():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(q4, k4, v4,
+                                                      is_causal=causal,
+                                                      scale=sc)
+
+        def sdpa_fb():
+            F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
+                                           scale=sc).backward(do4)
+
+        lib_fwd = time_ms(sdpa, 5)
+        lib_bwd = time_ms(sdpa_fb, 5) - lib_fwd
+        calls = {
+            "flash_fwd_packed_kernel": (
+                lambda: fl.flash_fwd_packed(qp, kp, vp, causal, sc),
+                lambda: fl.plain_flash_fwd_packed(qp, kp, vp, causal, sc),
+                lambda: fl.flash_fwd(q, k, v, causal, sc)),
+            "flash_bwd_fused_packed_kernel": (
+                lambda: fl.flash_bwd_fused_packed(*args),
+                lambda: fl.plain_flash_bwd_fused_packed(*args),
+                lambda: fl.flash_bwd_fused(*gargs)),
+            "flash_bwd_kv_packed_kernel": (
+                lambda: fl.flash_bwd_kv_packed(*args),
+                lambda: fl.plain_flash_bwd_kv_packed(*args),
+                lambda: fl.flash_bwd_kv(*gargs)),
+            "flash_bwd_q_packed_kernel": (
+                lambda: fl.flash_bwd_q_packed(*args),
+                lambda: fl.plain_flash_bwd_q_packed(*args),
+                lambda: fl.flash_bwd_q(*gargs))}
+        for name, (kern, plain, general) in calls.items():
+            by_bytes = io[name] / HBM_BYTES_PER_S * 1e3
+            by_ops = flops[name] / peak * 1e3
+            r = {"ms": time_ms(kern, 5), "general_ms": time_ms(general, 5),
+                 "library_ms": {"flash_fwd_packed_kernel": lib_fwd,
+                                "flash_bwd_fused_packed_kernel": lib_bwd
+                                }.get(name),
+                 "bound_ms": max(by_bytes, by_ops),
+                 "bound_by": "bytes" if by_bytes >= by_ops
+                 else "operations",
+                 "tensor_core_bound_ms": max(
+                     by_bytes, flops[name] / TF32_TC_FLOPS * 1e3)}
+            if not causal:
+                got, want = kern(), plain()
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                r["max_abs_err"] = max(
+                    (a.double() - b.double()).abs().max().item()
+                    for a, b in zip(got, want))
+                del got, want
+                r["plain_ms"] = time_ms(plain, 1)
+                r["shape"] = [[H // 2, S, 2 * d], [H // 2, S, 2 * d]]
+                res[name] = r
+            else:
+                res[name].update(causal_ms=r["ms"],
+                                 causal_general_ms=r["general_ms"],
+                                 causal_library_ms=r["library_ms"],
+                                 causal_bound_ms=r["bound_ms"])
+            mask = "causal" if causal else "non-causal"
+            log(f"  {name} q (48, 2048, 128) {mask} f32: kernel "
+                f"{r['ms']!r} ms, general kernel on the "
+                f"unpacked heads {r['general_ms']!r} ms, plain "
+                f"{res[name]['plain_ms']!r} ms (non-causal), library "
+                f"{r['library_ms']!r} ms, "
+                f"bound {r['bound_ms']!r} ms ({r['bound_by']}; TF32 tensor "
+                f"cores {r['tensor_core_bound_ms']!r} ms)")
+        log(f"  SDPA f32 {'causal ' if causal else ''}backward (dq, dk, dv; "
+            f"the two-pass pair's yardstick together): {lib_bwd!r} ms")
+        del q, k, v, do, qp, kp, vp, dop, out, lse, dd, args, gargs, calls
+        del q4, k4, v4, do4
+        torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 2: the paged decode kernels (rows 29-30)
 # ---------------------------------------------------------------------------
 
@@ -1891,6 +2155,10 @@ def wrappers() -> dict:
             "flash_bwd_fused_kernel": fl.flash_bwd_fused,
             "flash_bwd_kv_kernel": fl.flash_bwd_kv,
             "flash_bwd_q_kernel": fl.flash_bwd_q,
+            "flash_fwd_packed_kernel": fl.flash_fwd_packed,
+            "flash_bwd_fused_packed_kernel": fl.flash_bwd_fused_packed,
+            "flash_bwd_kv_packed_kernel": fl.flash_bwd_kv_packed,
+            "flash_bwd_q_packed_kernel": fl.flash_bwd_q_packed,
             "flash_decode_kernel": fl.paged_decode,
             "flash_decode_span_kernel": fl.paged_decode_span,
             "pp_relay_kernel": ppr.relay}
@@ -2792,20 +3060,40 @@ def moe_train_paths(gen, kernel_ms: dict) -> dict:
     return counts()
 
 
-def dense_f64(q, k, v, cot, sc: float):
-    """Causal softmax attention of (h, S, d) heads in float64, and the
-    gradients of sum(out cot)."""
+def dense_f64(q, k, v, cot, sc: float, causal: bool = True):
+    """Softmax attention of (h, S, d) heads in float64, causal unless told
+    otherwise, and the gradients of sum(out cot)."""
     import torch
     ts = [t.double().detach().requires_grad_() for t in (q, k, v)]
     s = torch.matmul(ts[0], ts[1].transpose(-1, -2)) * sc
-    S = s.shape[-1]
-    mask = torch.ones((S, S), dtype=torch.bool, device=s.device).tril()
-    p = torch.softmax(s.masked_fill(~mask, float("-inf")), -1)
-    del s, mask
+    if causal:
+        S = s.shape[-1]
+        mask = torch.ones((S, S), dtype=torch.bool, device=s.device).tril()
+        s = s.masked_fill(~mask, float("-inf"))
+        del mask
+    p = torch.softmax(s, -1)
+    del s
     out = torch.matmul(p, ts[2])
     del p
     (out * cot.double()).sum().backward()
     return out.detach(), [t.grad for t in ts]
+
+
+def step(prog, xs, cot):
+    """One forward and backward of ``prog`` on fresh leaves of ``xs``: the
+    output and the gradients of sum(out cot)."""
+    ts = [x.detach().requires_grad_() for x in xs]
+    out = prog(*ts)
+    (out.float() * cot).sum().backward()
+    return out.detach(), [t.grad for t in ts]
+
+
+def launched(fn):
+    """``fn()`` and the launches it made, by kernel (those above 0)."""
+    before = counts()
+    r = fn()
+    return r, {k: v - before[k] for k, v in counts().items()
+               if v - before[k]}
 
 
 def context_paths(gen, kernel_ms: dict) -> dict:
@@ -2842,18 +3130,6 @@ def context_paths(gen, kernel_ms: dict) -> dict:
     comm = Communicator(P, "cuda")
     sc = d ** -0.5
     reset_counts()
-
-    def step(prog, xs, cot):
-        ts = [x.detach().requires_grad_() for x in xs]
-        out = prog(*ts)
-        (out.float() * cot).sum().backward()
-        return out.detach(), [t.grad for t in ts]
-
-    def launched(fn):
-        before = counts()
-        r = fn()
-        return r, {k: v - before[k] for k, v in counts().items()
-                   if v - before[k]}
 
     def heads(x, hs):
         """(P, n, H, d) -> the (len(hs), P n, d) heads hs"""
@@ -3548,6 +3824,162 @@ def pp_breakdown(params, x, heads: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 3l: the head-packed flash arm
+# ---------------------------------------------------------------------------
+
+#: the packed arm's kernels, and the general arm's
+PACKED_KERNELS = ("flash_fwd_packed_kernel", "flash_bwd_fused_packed_kernel",
+                  "flash_bwd_kv_packed_kernel", "flash_bwd_q_packed_kernel")
+GENERAL_KERNELS = ("flash_fwd_kernel", "flash_bwd_fused_kernel",
+                   "flash_bwd_kv_kernel", "flash_bwd_q_kernel")
+
+
+def packed_paths(gen, kernel_ms: dict) -> dict:
+    """Phase 3l: ``flash_attention_packed`` at Switch-Base-8's attention
+    width (:data:`PACKED`: 12 heads of 64 at world 8, 2048 tokens per rank,
+    ranks x heads on the leading axis: q, k and v (96, 2048, 64)), the
+    entry's default scale, f32 and bf16, non-causal (the encoder) and
+    causal (the decoder); T5's relative-position bias lies outside the
+    entry and is not added. Each variant: one forward must launch
+    ``flash_fwd_packed_kernel`` once, one forward and backward in mode
+    fused also ``flash_bwd_fused_packed_kernel`` once (one dQ-slab run, the
+    JAX policy's fused arm), in mode two_pass the packed pair once each,
+    and no general kernel; ``flash_attention`` at d 64 (the general arm,
+    general kernels only) against it within 1e-5 (f32) or 1e-2 (bf16) of
+    each tensor's largest magnitude, and whether the bits agree; the fused
+    and the two-pass gradients bit-equal; in f32 against float64 on heads
+    0 and 57 (1e-5); p50 and tokens/s of the packed and general arms and
+    of ``scaled_dot_product_attention`` (timed only). Then an odd head
+    count through ``flash_attention_packed`` must launch only general
+    kernels, and the pack and unpack copies are timed on their own.
+    ``kernel_ms``: the packed kernels' times at this shape (phase 2).
+    Returns the launch counts of this part."""
+    import torch
+    import torch.nn.functional as F
+    from accl_tpu_torch.ops import flash as fl
+
+    H, S, d = PACKED["H"], PACKED["S"], PACKED["d"]
+    tokens = SWITCH["P"] * S
+    sc = d ** -0.5
+    hs = [0, 57]
+    reset_counts()
+    report = {}
+    for dt in (torch.float32, torch.bfloat16):
+        dname = "f32" if dt == torch.float32 else "bf16"
+        rel = 1e-5 if dt == torch.float32 else 1e-2
+        for causal in (False, True):
+            name = f"{'decoder (causal)' if causal else 'encoder'} {dname}"
+            xs = list(attn_operands(gen, H, H, S, d, dt))
+            cot = xs.pop().float()
+            arms = {
+                "packed": lambda m, *t: fl.flash_attention_packed(
+                    *t, causal=causal, bwd_mode=m),
+                "general": lambda m, *t: fl.flash_attention(
+                    *t, causal=causal, bwd_mode=m)}
+            with torch.no_grad():
+                yp, fwd_l = launched(lambda: arms["packed"](None, *xs))
+                yg, gfwd_l = launched(lambda: arms["general"](None, *xs))
+            if fwd_l != {"flash_fwd_packed_kernel": 1} or \
+                    gfwd_l != {"flash_fwd_kernel": 1}:
+                fail(f"packed {name}: one forward launched {fwd_l}, the "
+                     f"general arm's {gfwd_l}")
+            errs = {"out packed - general": near(
+                f"packed {name} out - general", yp, yg, rel)}
+            bits = {"out": torch.equal(yp, yg)}
+            res, step_l = {}, {}
+            for mode in ("fused", "two_pass"):
+                for arm, prog in arms.items():
+                    res[arm, mode], step_l[arm, mode] = launched(
+                        lambda: step(lambda *t: prog(mode, *t), xs, cot))
+                kinds = dict(zip(("fwd", "fused", "kv", "q"),
+                                 zip(PACKED_KERNELS, GENERAL_KERNELS)))
+                for i, arm in enumerate(("packed", "general")):
+                    want = {kinds["fwd"][i]: 1}
+                    for kind in (("fused",) if mode == "fused"
+                                 else ("kv", "q")):
+                        want[kinds[kind][i]] = 1
+                    if step_l[arm, mode] != want:
+                        fail(f"packed {name}: one {arm} forward + backward "
+                             f"in mode {mode} launched {step_l[arm, mode]}")
+                (_, gp), (_, gg) = res["packed", mode], res["general", mode]
+                for g, b, w in zip(gp, gg, ("dq", "dk", "dv")):
+                    errs[f"{w} packed - general ({mode})"] = near(
+                        f"packed {name} {w} - general ({mode})", g, b, rel)
+                    bits[f"{w} ({mode})"] = torch.equal(g, b)
+            for a, b, w in zip(res["packed", "fused"][1],
+                               res["packed", "two_pass"][1],
+                               ("dq", "dk", "dv")):
+                if not torch.equal(a, b):
+                    fail(f"packed {name} {w}: two-pass bits differ from "
+                         f"fused")
+            if dt == torch.float32:
+                y64, g64 = dense_f64(*(x[hs] for x in xs), cot[hs], sc,
+                                     causal)
+                errs["out packed - f64 (heads 0, 57)"] = near(
+                    f"packed {name} out - f64", yp[hs], y64, 1e-5)
+                for g, w64, w in zip(res["packed", "fused"][1], g64,
+                                     ("dq", "dk", "dv")):
+                    errs[f"{w} packed - f64 (heads 0, 57)"] = near(
+                        f"packed {name} {w} - f64", g[hs], w64, 1e-5)
+                del y64, g64
+            del res, yg
+            x4 = [x[None].detach().requires_grad_() for x in xs]
+            cot4 = cot[None].to(dt)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    *x4, is_causal=causal, scale=sc)
+
+            t = {}
+            for arm, prog in arms.items():
+                with torch.no_grad():
+                    t[f"{arm} forward"] = p50_call(
+                        lambda: prog(None, *xs), 5)
+                for mode in ("fused", "two_pass"):
+                    t[f"{arm} forward + backward ({mode})"] = p50_call(
+                        lambda: step(lambda *a: prog(mode, *a), xs, cot), 3)
+            with torch.no_grad():
+                t["SDPA forward"] = p50_call(sdpa, 5)
+            t["SDPA forward + backward"] = p50_call(
+                lambda: sdpa().backward(cot4), 3)
+            report[name] = {
+                "p50_ms": {k: v * 1e3 for k, v in t.items()},
+                "tokens_per_s": {k: tokens / v for k, v in t.items()},
+                "launches per forward": fwd_l,
+                "launches per forward + backward": {
+                    m: step_l["packed", m] for m in ("fused", "two_pass")},
+                "bit-equal to the general arm": bits, "errors": errs}
+            log(f"packed {name}, Switch-Base-8 attention (96 x 2048 x 64), "
+                f"{tokens} tokens: {json.dumps(report[name])}")
+            del xs, cot, yp, x4, cot4, arms
+            torch.cuda.empty_cache()
+
+    # outside the envelope (an odd head count): the general kernels alone
+    xs = list(attn_operands(gen, H - 1, H - 1, S, d, torch.float32))
+    cot = xs.pop()
+    _, odd_l = launched(lambda: step(
+        lambda *t: fl.flash_attention_packed(*t), xs, cot))
+    if set(odd_l) - set(GENERAL_KERNELS) or "flash_fwd_kernel" not in odd_l:
+        fail(f"flash_attention_packed at {H - 1} heads launched {odd_l}")
+    del xs, cot
+    q = torch.randn((H, S, d), generator=gen, device="cuda")
+    qp = fl._pack_heads(q)
+    copies = {"pack (96, 2048, 64) f32": time_ms(
+        lambda: fl._pack_heads(q), 5),
+        "unpack (48, 2048, 128) f32": time_ms(
+            lambda: fl._unpack_heads(qp), 5)}
+    log(f"packed entry outside its envelope ({H - 1} heads): {odd_l}; the "
+        f"copies alone, device ms (a forward makes three packs and one "
+        f"unpack, a forward + backward four of each): {json.dumps(copies)}")
+    report["copies_ms"] = copies
+    del q, qp
+    torch.cuda.empty_cache()
+    log(f"packed flash kernels at this shape (phase 2): "
+        f"{json.dumps(kernel_ms)}")
+    return counts()
+
+
 def cm_plan(op: str, a: int, b: int, c: int, P: int) -> dict:
     """The port's collective-matmul plan of one body call, f32,
     bidirectional (the composed step's defaults)."""
@@ -3585,6 +4017,10 @@ REPLACES = {
     "flash_bwd_fused_kernel": "accl_tpu/ops/flash.py:724",
     "flash_bwd_kv_kernel": "accl_tpu/ops/flash.py:612",
     "flash_bwd_q_kernel": "accl_tpu/ops/flash.py:658",
+    "flash_fwd_packed_kernel": "accl_tpu/ops/flash.py:874",
+    "flash_bwd_fused_packed_kernel": "accl_tpu/ops/flash.py:1147",
+    "flash_bwd_kv_packed_kernel": "accl_tpu/ops/flash.py:982",
+    "flash_bwd_q_packed_kernel": "accl_tpu/ops/flash.py:1024",
     "flash_decode_kernel": "accl_tpu/ops/flash.py:1590",
     "flash_decode_span_kernel": "accl_tpu/ops/flash.py:1661",
     "pp_relay_kernel": "accl_tpu/ops/pipeline_relay.py:155",
@@ -3606,6 +4042,10 @@ SOURCE = {"ring_rs_kernel": "ring.cu", "ring_ag_kernel": "ring.cu",
           "flash_bwd_fused_kernel": "flash.cu",
           "flash_bwd_kv_kernel": "flash.cu",
           "flash_bwd_q_kernel": "flash.cu",
+          "flash_fwd_packed_kernel": "flash.cu",
+          "flash_bwd_fused_packed_kernel": "flash.cu",
+          "flash_bwd_kv_packed_kernel": "flash.cu",
+          "flash_bwd_q_packed_kernel": "flash.cu",
           "flash_decode_kernel": "decode.cu",
           "flash_decode_span_kernel": "decode.cu",
           "pp_relay_kernel": "pipeline.cu"}
@@ -3620,7 +4060,12 @@ PART = {"ring_rs_kernel": "allreduce", "ring_ag_kernel": "allreduce",
         "mmrs_kernel": "tp_mlp", "wgrad_kernel": "tp_train",
         "a2a_wgrad_kernel": "moe_train", "flash_fwd_kernel": "context",
         "flash_bwd_fused_kernel": "context", "flash_bwd_kv_kernel": "context",
-        "flash_bwd_q_kernel": "context", "flash_decode_kernel": "serving",
+        "flash_bwd_q_kernel": "context",
+        "flash_fwd_packed_kernel": "packed",
+        "flash_bwd_fused_packed_kernel": "packed",
+        "flash_bwd_kv_packed_kernel": "packed",
+        "flash_bwd_q_packed_kernel": "packed",
+        "flash_decode_kernel": "serving",
         "flash_decode_span_kernel": "serving",
         "pp_relay_kernel": "pipeline"}
 
@@ -3656,6 +4101,7 @@ def main() -> int:
     check_cmatmul_kernels(gen)
     check_wgrad_kernel(gen)
     check_flash_kernels(gen)
+    check_flash_packed_kernels(gen)
     check_decode_kernels(gen)
     check_pp_relay_kernel(gen)
     total = torch.cuda.get_device_properties(0).total_memory
@@ -3667,6 +4113,7 @@ def main() -> int:
     meas.update(measure_moe_kernels(gen))
     meas.update(measure_cmatmul_kernels(gen))
     meas.update(measure_flash_kernels(gen))
+    meas.update(measure_flash_packed_kernels(gen))
     meas.update(measure_decode_kernels(gen))
     meas.update(measure_pp_relay_kernel(gen))
 
@@ -3684,12 +4131,13 @@ def main() -> int:
                  k: meas[k]["ms"] for k in ("a2a_mm_kernel", "mm_a2a_kernel",
                                             "a2a_wgrad_kernel")}),
              "context": context_paths(gen, {
-                 k: meas[k]["ms"] for k in REPLACES if "flash_bwd" in k
-                 or k == "flash_fwd_kernel"}),
+                 k: meas[k]["ms"] for k in GENERAL_KERNELS}),
              "serving": serving_paths(gen, {
                  k: meas[k]["ms"] for k in REPLACES if "decode" in k}),
              "pipeline": pp_paths(gen, {
-                 "pp_relay_kernel": meas["pp_relay_kernel"]["ms"]})}
+                 "pp_relay_kernel": meas["pp_relay_kernel"]["ms"]}),
+             "packed": packed_paths(gen, {
+                 k: meas[k]["ms"] for k in PACKED_KERNELS})}
     launches = {k: parts[PART[k]][k] for k in REPLACES}
     for k, v in launches.items():
         if v <= 0:
@@ -3706,7 +4154,9 @@ def main() -> int:
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
             "shape": m["shape"]}
         for extra in ("ring_bound_ms", "tensor_core_bound_ms",
-                      "live_pages", "useful_gflop", "segments"):
+                      "live_pages", "useful_gflop", "segments", "general_ms",
+                      "causal_ms", "causal_general_ms", "causal_library_ms",
+                      "causal_bound_ms"):
             if extra in m:
                 entry[extra] = m[extra]
         if k in ALSO_REPLACES:

@@ -1,12 +1,14 @@
 """The port's CUDA kernels (the ring kernels, the rooted relays, the
 all-to-all, the plugin lanes, the fused MoE dispatch, combine and a2a-wgrad,
 the collective matmuls with their gathered wgrad, the four flash
-attention kernels, the two paged decode kernels and the pipeline relay)
+attention kernels and the four of its head-packed arm, the two paged
+decode kernels and the pipeline relay)
 against their plain PyTorch versions on the card:
 bit-equal (``torch.equal``, or the raw bits where NaN can occur; the matmul
 kernels on integer-valued operands), the flash kernels within 1e-5 (f32) or
 1e-2 (bf16) of each tensor's largest magnitude, their backward bit-equal
-across two runs and between the fused and the two-pass arm, the decode
+across two runs and between the fused and the two-pass arm (the packed
+kernels also bit-equal to the general ones at d 64), the decode
 kernels within 1e-5; the context-parallel layers, the TP decode and
 prefill steps and the pipeline train steps on the card against the CPU.
 This test needs an NVIDIA GPU with ``nvcc`` (the kernels build at first
@@ -78,6 +80,7 @@ def test_ring_kernels_on_card(gen, monkeypatch):
     _moe_kernels(gen)
     _cmatmul_kernels(gen)
     _flash_kernels(gen)
+    _flash_packed_kernels(gen)
     _context_on_card(gen)
     _decode_kernels(gen)
     _serving_on_card(gen)
@@ -595,6 +598,70 @@ def _flash_kernels(gen):
             assert torch.equal(fused[n], two[n]), (name, case)
             assert torch.equal(fused[n], again[n]), (name, case)
             assert torch.equal(fused[n], split[n]), (name, case)
+    torch.cuda.synchronize()
+
+
+def _flash_packed_kernels(gen):
+    """The four packed kernels against their plain versions and, at d 64,
+    bit-equal to the general kernels on the unpacked heads (f32, bf16 and
+    f16, causal and not, H 2 to 8, S 128 to 1024); the fused and two-pass
+    gradients bit-equal, and the fused backward split into several
+    launches bit-equal to one; then the entry point against
+    ``flash_attention``, bit for bit, launching only packed kernels."""
+    from accl_tpu_torch.ops import flash as fl
+    cases = [(2, 128, False, torch.float32), (4, 256, True, torch.float32),
+             (8, 1024, True, torch.float32), (4, 512, False, torch.bfloat16),
+             (2, 256, True, torch.float16)]
+    for H, S, causal, dt in cases:
+        case = (H, S, causal, dt)
+        rel = 1e-5 if dt == torch.float32 else 1e-2
+        q, k, v, do = (_make((H // 2, S, 128), dt, gen) for _ in range(4))
+        heads = [fl._unpack_heads(t).contiguous() for t in (q, k, v, do)]
+        sc = 64 ** -0.5
+        out, lse = fl.flash_fwd_packed(q, k, v, causal, sc)
+        pout, plse = fl.plain_flash_fwd_packed(q, k, v, causal, sc)
+        _near(f"packed fwd out {case}", out.float(), pout.float(), rel)
+        _near(f"packed fwd lse {case}", lse, plse, 1e-5)
+        gout, glse = fl.flash_fwd(*heads[:3], causal, sc)
+        assert torch.equal(fl._unpack_heads(out), gout), case
+        assert torch.equal(lse.reshape(H, S), glse), case
+        dd = (do.float() * out.float()).reshape(H // 2, S, 2, 64).sum(-1) \
+            .transpose(1, 2).contiguous() - torch.randn(
+                (H // 2, 2, S), generator=gen, device="cuda")
+        args = (q, k, v, do, lse, dd, causal, sc)
+        fused = fl.flash_bwd_fused_packed(*args)
+        two = (fl.flash_bwd_q_packed(*args), *fl.flash_bwd_kv_packed(*args))
+        plain = fl.plain_flash_bwd_fused_packed(*args)
+        general = fl.flash_bwd_fused(*heads, glse, dd.reshape(H, S), causal,
+                                     sc)
+        saved = fl._DQ_SLAB_BUDGET
+        fl._DQ_SLAB_BUDGET = H * S * 64 * 4 * 3      # 3 k tiles a launch
+        try:
+            split = fl.flash_bwd_fused_packed(*args)
+        finally:
+            fl._DQ_SLAB_BUDGET = saved
+        for n, name in enumerate(("dq", "dk", "dv")):
+            _near(f"packed bwd {name} {case}", fused[n], plain[n], 1e-5)
+            assert torch.equal(fused[n], two[n]), (name, case)
+            assert torch.equal(fused[n], split[n]), (name, case)
+            assert torch.equal(fl._unpack_heads(fused[n]), general[n]), \
+                (name, case)
+    q, k, v, do = (_make((4, 512, 64), torch.float32, gen) for _ in range(4))
+    for mode in ("fused", "two_pass"):
+        res = []
+        for fn in (fl.flash_attention_packed, fl.flash_attention):
+            ts = [t.detach().requires_grad_() for t in (q, k, v)]
+            before = [w.launches for w in (fl.flash_fwd_packed,
+                                           fl.flash_fwd)]
+            o = fn(*ts, causal=True, bwd_mode=mode)
+            (o * do).sum().backward()
+            after = [w.launches for w in (fl.flash_fwd_packed, fl.flash_fwd)]
+            packed = fn is fl.flash_attention_packed
+            assert [a - b for a, b in zip(after, before)] == \
+                ([1, 0] if packed else [0, 1]), (mode, packed)
+            res.append([o.detach(), *(t.grad for t in ts)])
+        for a, b in zip(*res):
+            assert torch.equal(a, b), mode
     torch.cuda.synchronize()
 
 
