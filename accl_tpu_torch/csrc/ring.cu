@@ -5,11 +5,11 @@
 //   ring_ag_kernel     <- accl_tpu/parallel/pallas_ring.py     _ag_kernel
 //   chunked_rs_kernel  <- accl_tpu/parallel/pallas_chunked.py  _chunked_rs_kernel
 //   chunked_ag_kernel  <- accl_tpu/parallel/pallas_chunked.py  _chunked_ag_kernel
-// and the three segmented relays of the rooted collectives (bcast, scatter,
-// gather; reduce is chunked_rs_kernel then gather_relay_kernel):
+// and the rooted collectives (reduce is chunked_rs_kernel then
+// gather_copy_kernel):
 //   bcast_relay_kernel    <- accl_tpu/parallel/pallas_chunked.py  _chunked_bcast_kernel
-//   scatter_relay_kernel  <- accl_tpu/parallel/pallas_chunked.py  _chunked_scatter_kernel
-//   gather_relay_kernel   <- accl_tpu/parallel/pallas_chunked.py  _chunked_gather_kernel
+//   scatter_copy_kernel   <- accl_tpu/parallel/pallas_chunked.py  _chunked_scatter_kernel
+//   gather_copy_kernel    <- accl_tpu/parallel/pallas_chunked.py  _chunked_gather_kernel
 // and the phased ring-rotation all-to-all:
 //   alltoall_phase_kernel <- accl_tpu/parallel/pallas_chunked.py  _chunked_alltoall_kernel
 //
@@ -30,21 +30,26 @@
 // upstream rank's output rows, which are written once, so they need
 // readiness flags only.
 //
-// The relays move a root's payload one neighbour at a time along the ring
-// (section "rooted relays" below); the all-to-all rotates every rank's
-// chunks round the ring, phase by phase. They are pure transport, templated
+// The bcast relay moves a root's payload one neighbour at a time along the
+// ring (section "rooted relays" below); the all-to-all rotates every rank's
+// chunks round the ring, phase by phase. The scatter and gather do not
+// relay: each block goes straight from where it lies to where it belongs
+// (section "rooted one-hop copies"). All four are pure transport, templated
 // on the element's size, not its type: the TPU kernels run them in the wire
 // dtype.
 //
-// No hang: the grid is launched cooperatively, so it is co-resident or
-// refused, and every spin is bounded by %globaltimer. A spin that times out
-// writes the error word and returns; every other spinner sees the word and
-// returns too; the Python wrapper reads the word after the launch and raises.
+// No hang: the rings, the bcast relay and the all-to-all are launched
+// cooperatively, so the grid is co-resident or refused, and every spin is
+// bounded by %globaltimer. A spin that times out writes the error word and
+// returns; every other spinner sees the word and returns too; the Python
+// wrapper reads the word after the launch and raises. The one-hop copies
+// wait on nothing and launch as ordinary grids.
 //
 // Bound. Every kernel here moves bytes and does at most one add per element
 // read, so device memory bandwidth bounds it (3.35 TB/s on an H100 SXM). The
-// design is simple on purpose: scalar coalesced accesses and a flag round
-// trip per hop; TMA, 16-byte vector accesses and fewer flags are later work.
+// ring kernels are simple on purpose: scalar coalesced accesses and a flag
+// round trip per hop; TMA, 16-byte vector accesses and fewer flags are later
+// work. The one-hop copies move 16 bytes per access (section below).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -386,7 +391,7 @@ chunked_ag_kernel(RankPtrs x, RankPtrs out, int* flags, int P, int C, long long 
 }
 
 // ---------------------------------------------------------------------------
-// rooted relays
+// rooted relay: bcast
 // ---------------------------------------------------------------------------
 //
 // One channel: CTA b of every rank owns elements [lo, hi) of every segment,
@@ -394,8 +399,7 @@ chunked_ag_kernel(RankPtrs x, RankPtrs out, int* flags, int P, int C, long long 
 // rank's ring position; data moves one position per hop, from pos - 1 to
 // pos, and every rank reads only its upstream neighbour's buffers. Each
 // hop is one segment read and written once. The root's own row is never
-// written: it is the source (bcast, scatter) or the home of its own block
-// (gather), which the bodies keep exact.
+// written: it is the source, which the body keeps exact.
 
 template <typename T>
 __device__ __forceinline__ void copy_slice(T* dst, const T* src, long long lo, long long hi,
@@ -436,104 +440,68 @@ bcast_relay_kernel(RankPtrs x, RankPtrs out, int* flags, int P, int C, long long
   }
 }
 
-// _chunked_scatter_kernel. x[r]: (P, C, S), the root's blocks by destination
-// rank (read at the root only); out[r]: (C, S); stage[r]: (2, S). Position
-// pos receives a stream of C * (P - pos) segments, the blocks of positions
-// pos, pos + 1, ..., P - 1 in turn: it keeps the first C (its own block) and
-// stages incoming t >= C as its outgoing k = t - C in slot k % 2 for its
-// downstream neighbour. Position 1 reads the root's blocks where they lie;
-// the others read their upstream neighbour's slots. Flags per (rank, CTA,
-// slot): ready = k + 1 once outgoing k is staged; cons = k + 1 once the
-// downstream neighbour has copied it, the credit to overwrite the slot.
-// Staged bytes are not output, so a relay needs these slots; the chain from
-// the root is acyclic and its last rank never waits downstream, so it
-// cannot deadlock.
+// ---------------------------------------------------------------------------
+// rooted one-hop copies: scatter and gather
+// ---------------------------------------------------------------------------
+//
+// What the TPU kernels compute: a scatter sets out[r] = x[root][r], a gather
+// sets slot s of the root's output to x[s], for every rank but the root.
+// They relay because ICI is a torus of neighbour links: a block moves one
+// ring position per hop and is read and written at each, P (P-1) / 2 block
+// copies in all where the function needs P - 1. On one card every rank is
+// a row in the same HBM, so here each block goes straight from where it
+// lies to where it belongs, read once and written once: no ring positions,
+// no staging slots, no flags, nothing waits on another CTA. Through
+// peer-mapped cards on NVSwitch the root's NVLink port would bound a
+// scatter or gather either way, so one hop is right there too.
+//
+// Bound: 2 (P-1) n elements of traffic over HBM bandwidth. The design spends
+// the whole card on it: blockIdx.y picks the block, and blockIdx.x covers
+// it in one pass, one 16-byte access per thread, so the grid's CTAs sweep
+// HBM in address order and the resident ones (eight of 256 threads per SM)
+// keep some 2048 loads in flight per SM. On an H100 80GB HBM3 at 700 W
+// (tools/copy_variants.py, P 8, 128 MiB blocks) that beats a persistent
+// grid-stride loop with four loads in flight per thread by 6% and
+// streaming cache hints by 1%, and matches cudaMemcpy. A block whose
+// source or destination is not 16-byte aligned (S 777 in int8 or bf16 puts
+// blocks at odd offsets), and the tail of an aligned block shorter than 16
+// bytes, go element by element.
+
+// dst[0, n) = src[0, n), over the CTAs of this blockIdx.y
 template <typename T>
-__global__ void __launch_bounds__(ACCL_THREADS)
-scatter_relay_kernel(RankPtrs x, RankPtrs out, RankPtrs stage, int* flags, int P, int C,
-                     long long S, int root, unsigned long long timeout_ns) {
-  const int r = blockIdx.z, b = blockIdx.x, B = gridDim.x;
-  const int pos = (r - root + P) % P;
-  if (pos == 0) return;
-  const int up = (r - 1 + P) % P;
-  const int nflag = P * B * 2;
-  int* const err = flags + 2 * nflag;
-  auto ready = [&](int rank, int slot) { return flags + (rank * B + b) * 2 + slot; };
-  auto cons = [&](int rank, int slot) { return flags + nflag + (rank * B + b) * 2 + slot; };
-  const long long per = (S + B - 1) / B;
-  const long long lo = min(S, (long long)b * per), hi = min(S, lo + per);
-  const T* xr = static_cast<const T*>(x.p[root]);
-  const T* ups = static_cast<const T*>(stage.p[up]);
-  T* mine = static_cast<T*>(stage.p[r]);
-  T* o = static_cast<T*>(out.p[r]);
-  const int n_in = (P - pos) * C;
-  for (int t = 0; t < n_in; ++t) {
-    const T* src;
-    if (pos == 1) {
-      const int dest = (root + 1 + t / C) % P;
-      src = xr + ((long long)dest * C + t % C) * S;
-    } else {
-      if (!block_wait(ready(up, t & 1), t + 1, err, timeout_ns)) return;
-      src = ups + (long long)(t & 1) * S;
-    }
-    const int k = t - C;
-    T* dst;
-    if (k < 0) {
-      dst = o + (long long)t * S;
-    } else {
-      // my slot k % 2 held outgoing k - 2: downstream must have copied it
-      if (k >= 2 && !block_wait(cons(r, k & 1), k - 1, err, timeout_ns)) return;
-      dst = mine + (long long)(k & 1) * S;
-    }
-    copy_slice(dst, src, lo, hi, pos > 1);
-    block_fence();
-    if (threadIdx.x == 0) {
-      if (k >= 0) st_release(ready(r, k & 1), k + 1);
-      if (pos > 1) st_release(cons(up, t & 1), t + 1);
-    }
+__device__ __forceinline__ void copy_block(T* __restrict__ dst, const T* __restrict__ src,
+                                           long long n) {
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  long long done = 0;
+  if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) & 15) == 0) {
+    const long long nv = n * (long long)sizeof(T) / 16;
+    const uint4* __restrict__ s = reinterpret_cast<const uint4*>(src);
+    uint4* __restrict__ d = reinterpret_cast<uint4*>(dst);
+    for (long long i = tid; i < nv; i += stride) d[i] = s[i];
+    done = nv * 16 / (long long)sizeof(T);
   }
+  for (long long i = done + tid; i < n; i += stride) dst[i] = src[i];
 }
 
-// _chunked_gather_kernel. x[r]: (C, S), rank r's own block; out[r]: (P, C, S)
-// by source rank: the gathered blocks at the root, a relay store elsewhere
-// (the wrapper returns the root's row only). Blocks flow toward the root
-// one position per hop: position pos sends its own block, then relays the
-// pos - 1 blocks it received, first in first out. Its incoming segment t
-// (of (pos - 1) * C; the root's of (P - 1) * C) is its upstream neighbour's
-// outgoing t: that rank's own segment t while t < C, else the segment it
-// stored at its step t - C, read from its out rows. Incoming t belongs to
-// source rank r - 1 - t / C and lands in that rank's slot. Out rows are
-// written once, so readiness (prog = t + 1 once incoming t is stored)
-// suffices.
+// _chunked_scatter_kernel. x: the root's (P, n) blocks by destination rank;
+// out[r]: (n,). blockIdx.y = j covers rank j + (j >= root): every rank but
+// the root, whose row the body fills with its own block.
 template <typename T>
 __global__ void __launch_bounds__(ACCL_THREADS)
-gather_relay_kernel(RankPtrs x, RankPtrs out, int* flags, int P, int C, long long S, int root,
-                    unsigned long long timeout_ns) {
-  const int r = blockIdx.z, b = blockIdx.x, B = gridDim.x;
-  const int pos = (r - root + P) % P;
-  const int up = (r - 1 + P) % P;
-  int* const err = flags + P * B;
-  auto prog = [&](int rank) { return flags + rank * B + b; };
-  const long long per = (S + B - 1) / B;
-  const long long lo = min(S, (long long)b * per), hi = min(S, lo + per);
-  const T* ux = static_cast<const T*>(x.p[up]);
-  const T* uo = static_cast<const T*>(out.p[up]);
-  T* o = static_cast<T*>(out.p[r]);
-  const int n_in = (pos == 0 ? P - 1 : pos - 1) * C;
-  for (int t = 0; t < n_in; ++t) {
-    const int i = t / C, seg = t % C;
-    const long long slot = ((long long)((r - 1 - i + 2 * P) % P) * C + seg) * S;
-    const T* src;
-    if (i == 0) {
-      src = ux + (long long)seg * S;
-    } else {
-      if (!block_wait(prog(up), t - C + 1, err, timeout_ns)) return;
-      src = uo + slot;
-    }
-    copy_slice(o + slot, src, lo, hi, i > 0);
-    block_fence();
-    if (threadIdx.x == 0) st_release(prog(r), t + 1);
-  }
+scatter_copy_kernel(const T* __restrict__ x, RankPtrs out, long long n, int root) {
+  const int r = blockIdx.y + (blockIdx.y >= root);
+  copy_block(static_cast<T*>(out.p[r]), x + (long long)r * n, n);
+}
+
+// _chunked_gather_kernel. x[s]: (n,), rank s's block; out: the root's (P, n)
+// slots by source rank. blockIdx.y = j covers source j + (j >= root); the
+// root's own slot is left to the body.
+template <typename T>
+__global__ void __launch_bounds__(ACCL_THREADS)
+gather_copy_kernel(RankPtrs x, T* __restrict__ out, long long n, int root) {
+  const int s = blockIdx.y + (blockIdx.y >= root);
+  copy_block(out + (long long)s * n, static_cast<const T*>(x.p[s]), n);
 }
 
 // ---------------------------------------------------------------------------
@@ -647,15 +615,12 @@ static const void* ag_resolve(int chunked, int itemsize) {
   return nullptr;
 }
 
-enum { KIND_RS = 0, KIND_AG = 1, KIND_BCAST = 2, KIND_SCATTER = 3, KIND_GATHER = 4,
-       KIND_ALLTOALL = 5 };
+enum { KIND_RS = 0, KIND_AG = 1, KIND_BCAST = 2, KIND_ALLTOALL = 5 };
 
 template <typename T>
 static const void* relay_fn(int kind) {
   switch (kind) {
     case KIND_BCAST: return (const void*)bcast_relay_kernel<T>;
-    case KIND_SCATTER: return (const void*)scatter_relay_kernel<T>;
-    case KIND_GATHER: return (const void*)gather_relay_kernel<T>;
     case KIND_ALLTOALL: return (const void*)alltoall_phase_kernel<T>;
   }
   return nullptr;
@@ -697,6 +662,34 @@ static cudaError_t launch(const void* fn, int B, int nchan, int P, void** args,
   if (e != cudaSuccess) return e;
   if ((long long)B * nchan * P > cap) return cudaErrorCooperativeLaunchTooLarge;
   e = cudaLaunchCooperativeKernel(fn, dim3(B, nchan, P), dim3(ACCL_THREADS), args, 0, stream);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <typename T>
+static const void* copy_fn(bool gather) {
+  return gather ? (const void*)gather_copy_kernel<T> : (const void*)scatter_copy_kernel<T>;
+}
+
+static const void* copy_resolve(bool gather, int itemsize) {
+  switch (itemsize) {
+    case 1: return copy_fn<uint8_t>(gather);
+    case 2: return copy_fn<uint16_t>(gather);
+    case 4: return copy_fn<uint32_t>(gather);
+    case 8: return copy_fn<uint64_t>(gather);
+  }
+  return nullptr;
+}
+
+// An ordinary launch of (bx, P - 1) CTAs, bx covering a block's 16-byte
+// vectors once.
+static cudaError_t launch_copy(const void* fn, int P, long long n, int itemsize,
+                               void** args, cudaStream_t stream) {
+  const long long vec = ((long long)itemsize * n + 15) / 16;
+  const long long bx = (vec + ACCL_THREADS - 1) / ACCL_THREADS;
+  if (bx > 0x7fffffffLL) return cudaErrorInvalidValue;
+  cudaError_t e = cudaLaunchKernel(fn, dim3((unsigned)bx, (unsigned)(P - 1)),
+                                   dim3(ACCL_THREADS), args, 0, stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -754,10 +747,9 @@ int accl_ring_ag(int chunked, int itemsize, const uint64_t* x, const uint64_t* o
   return (int)launch(fn, B, 1, P, args, static_cast<cudaStream_t>(stream));
 }
 
-// One rooted relay (kind KIND_BCAST, KIND_SCATTER or KIND_GATHER), or the
-// all-to-all (KIND_ALLTOALL, root unused), over elements of `itemsize` bytes;
-// stage is the scatter's staging slots or the all-to-all's bounce, unused
-// otherwise.
+// The bcast relay (KIND_BCAST) or the all-to-all (KIND_ALLTOALL, root
+// unused), over elements of `itemsize` bytes; stage is the all-to-all's
+// bounce, unused by the bcast.
 int accl_ring_relay(int kind, int itemsize, const uint64_t* x, const uint64_t* out,
                     const uint64_t* stage, void* flags, int P, int C, long long S, int B,
                     int root, double timeout_s, void* stream) {
@@ -768,11 +760,6 @@ int accl_ring_relay(int kind, int itemsize, const uint64_t* x, const uint64_t* o
   int* f = static_cast<int*>(flags);
   unsigned long long tns = (unsigned long long)(timeout_s * 1e9);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kind == KIND_SCATTER) {
-    RankPtrs ts = table(stage, P);
-    void* args[] = {&tx, &to, &ts, &f, &P, &C, &S, &root, &tns};
-    return (int)launch(fn, B, 1, P, args, st);
-  }
   if (kind == KIND_ALLTOALL) {
     RankPtrs tb = table(stage, P);
     void* args[] = {&tx, &to, &tb, &f, &P, &C, &S, &tns};
@@ -780,6 +767,28 @@ int accl_ring_relay(int kind, int itemsize, const uint64_t* x, const uint64_t* o
   }
   void* args[] = {&tx, &to, &f, &P, &C, &S, &root, &tns};
   return (int)launch(fn, B, 1, P, args, st);
+}
+
+// scatter_copy_kernel: x is the root's (P, n) blocks, out the per-rank rows.
+int accl_ring_scatter(int itemsize, const void* x, const uint64_t* out, int P, long long n,
+                      int root, void* stream) {
+  const void* fn = copy_resolve(false, itemsize);
+  if (fn == nullptr || P < 2 || P > ACCL_MAX_RANKS || root < 0 || root >= P || n < 1)
+    return (int)cudaErrorInvalidValue;
+  RankPtrs to = table(out, P);
+  void* args[] = {&x, &to, &n, &root};
+  return (int)launch_copy(fn, P, n, itemsize, args, static_cast<cudaStream_t>(stream));
+}
+
+// gather_copy_kernel: x the per-rank blocks, out the root's (P, n) slots.
+int accl_ring_gather(int itemsize, const uint64_t* x, void* out, int P, long long n, int root,
+                     void* stream) {
+  const void* fn = copy_resolve(true, itemsize);
+  if (fn == nullptr || P < 2 || P > ACCL_MAX_RANKS || root < 0 || root >= P || n < 1)
+    return (int)cudaErrorInvalidValue;
+  RankPtrs tx = table(x, P);
+  void* args[] = {&tx, &out, &n, &root};
+  return (int)launch_copy(fn, P, n, itemsize, args, static_cast<cudaStream_t>(stream));
 }
 
 const char* accl_ring_error_string(int code) {

@@ -119,6 +119,12 @@ def _declare_ring(lib: ctypes.CDLL) -> None:
                                     c_int, c_int, c_ll, c_int, c_int,
                                     ctypes.c_double, c_p]
     lib.accl_ring_relay.restype = c_int
+    lib.accl_ring_scatter.argtypes = [c_int, c_p, u64p, c_int, c_ll, c_int,
+                                      c_p]
+    lib.accl_ring_scatter.restype = c_int
+    lib.accl_ring_gather.argtypes = [c_int, u64p, c_p, c_int, c_ll, c_int,
+                                     c_p]
+    lib.accl_ring_gather.restype = c_int
 
 
 def _declare_plugins(lib: ctypes.CDLL) -> None:
@@ -227,9 +233,11 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
 
 
 def pointer_table(rows) -> ctypes.Array:
-    """Per-rank pointer table (``uint64_t[P]``) of a tensor's rows."""
-    ptrs = [int(row.data_ptr()) for row in rows]
-    return (ctypes.c_uint64 * len(ptrs))(*ptrs)
+    """Per-rank pointer table (``uint64_t[P]``) of a tensor's rows, from
+    its base address and row stride (no per-row tensor views)."""
+    base, step = rows.data_ptr(), rows.stride(0) * rows.element_size()
+    return (ctypes.c_uint64 * rows.shape[0])(
+        *(base + r * step for r in range(rows.shape[0])))
 
 
 def stream_handle(device) -> Optional[int]:

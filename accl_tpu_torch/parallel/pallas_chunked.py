@@ -1,7 +1,7 @@
 """Segmented ring collectives (counterpart:
 ``accl_tpu/parallel/pallas_chunked.py``): the reduce-scatter and all-gather
 above ``pallas_ring.VMEM_PAYLOAD_THRESHOLD`` staged bytes, up to 1 GiB per
-rank, the rooted relays of bcast, scatter, gather and reduce, and the
+rank, the rooted collectives bcast, scatter, gather and reduce, and the
 phased ring-rotation all-to-all.
 
 Each chunk is cut into C segments of ``_geometry``'s size. Six kernels,
@@ -20,23 +20,31 @@ version on CPU tensors, the CUDA kernel on CUDA tensors, no fallback):
 * :func:`chunked_bcast` replaces ``_chunked_bcast_kernel``: the root's
   segments move one ring position per hop, pipelined. Kernel:
   ``bcast_relay_kernel``.
-* :func:`chunked_scatter` replaces ``_chunked_scatter_kernel``: the root
-  streams the blocks of positions 1..P-1; each rank keeps the first C
-  segments that reach it and forwards the rest through two staging slots.
-  Kernel: ``scatter_relay_kernel``.
-* :func:`chunked_gather` replaces ``_chunked_gather_kernel``: each rank
-  sends its own block, then relays what reaches it from upstream, toward
-  the root. Kernel: ``gather_relay_kernel``.
+* :func:`chunked_scatter` replaces ``_chunked_scatter_kernel``: each of
+  the root's blocks goes straight to its rank. Kernel:
+  ``scatter_copy_kernel``.
+* :func:`chunked_gather` replaces ``_chunked_gather_kernel``: each rank's
+  block goes straight to its slot at the root. Kernel:
+  ``gather_copy_kernel``.
 
 All are bound by device memory bandwidth. On the card the reduce-scatter's
 and all-gather's two channels are separate CTA groups that run at once,
 each with its own two staging slots and flag words; the credit chain runs
 over a channel's global step counter across segment boundaries, as on the
-TPU. The relays are pure transport, run in the wire dtype: one channel,
-readiness words per segment, and (scatter only) credits on the two slots;
-the all-to-all keeps one progress word per rank that is its right
-neighbour's readiness and its left neighbour's credit, over one global step
-count.
+TPU. The bcast relay and the all-to-all are pure transport, run in the
+wire dtype: the relay on one channel with readiness words per segment, the
+all-to-all with one progress word per rank that is its right neighbour's
+readiness and its left neighbour's credit, over one global step count.
+
+The scatter and gather depart from the TPU's schedule. The TPU kernels
+relay their blocks round the ring because ICI links only neighbours, so a
+block is read and written once per hop: P (P-1) / 2 block copies where the
+function needs P - 1, 4x its bytes at P = 8. Every rank of this port lies
+in one HBM, so the kernels copy each block once, from where it lies to
+where it belongs, with the whole card and 16-byte accesses, and nothing
+waits: no flags, no error word, an ordinary launch. Their bound is the
+function's own, 2 (P-1) n elements moved. They are pure transport too,
+and compute exactly what the TPU kernels do, bit for bit.
 
 The bodies keep the JAX package's host-side policy: the stride padding of
 each chunk into the uniform (P, C, S) grid, the per-parity realignment for
@@ -145,37 +153,32 @@ chunked_allgather.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# kernels 8, 9 and 11: the rooted relays (_chunked_bcast_kernel,
-# _chunked_scatter_kernel, _chunked_gather_kernel)
+# kernel 8: the bcast relay (_chunked_bcast_kernel)
 # ---------------------------------------------------------------------------
 
-#: the relays' and the all-to-all's kernel kinds (``KIND_*`` of csrc/ring.cu)
-_BCAST, _SCATTER, _GATHER, _ALLTOALL = 2, 3, 4, 5
+#: the bcast relay's and the all-to-all's kernel kinds (``KIND_*`` of
+#: csrc/ring.cu)
+_BCAST, _ALLTOALL = 2, 5
 
 
 def _launch_relay(kind: int, x: torch.Tensor, root: int, out_shape,
                   what: str):
-    """Enqueue one rooted relay or the all-to-all (``root`` unused) on the
+    """Enqueue the bcast relay or the all-to-all (``root`` unused) on the
     card; x's rows are the ranks' inputs. Returns (out, flags); the caller
     checks the flags' error word."""
     P = x.shape[0]
     C, S = out_shape[-2], out_shape[-1]
     _pr._check_cuda(x, what)
-    if not 0 <= root < P:
-        raise ValueError(f"{what}: root {root} outside ranks 0..{P - 1}")
+    _check_root(root, P, what)
     lib = cuda_build.load()
     size = _itemsize(x.dtype)
     dev = x.device
     B = _pr._grid(lib, kind, 1, size, 0, P, 1, S, dev)
     out = torch.empty(out_shape, dtype=x.dtype, device=dev)
     stage = None
-    nflags = P * B + 1
-    if kind == _SCATTER:
-        stage = torch.empty((P, 2, S), dtype=x.dtype, device=dev)
-        nflags = 2 * P * B * 2 + 1
-    elif kind == _ALLTOALL:
+    if kind == _ALLTOALL:
         stage = torch.empty((P, 2, C, S), dtype=x.dtype, device=dev)
-    flags = torch.zeros(nflags, dtype=torch.int32, device=dev)
+    flags = torch.zeros(P * B + 1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.accl_ring_relay(
             kind, size, cuda_build.pointer_table(x),
@@ -185,6 +188,11 @@ def _launch_relay(kind: int, x: torch.Tensor, root: int, out_shape,
             cuda_build.stream_handle(dev))
     cuda_build.check(lib, rc, what)
     return out, flags
+
+
+def _check_root(root: int, P: int, what: str) -> None:
+    if not 0 <= root < P:
+        raise ValueError(f"{what}: root {root} outside ranks 0..{P - 1}")
 
 
 def plain_chunked_bcast(x: torch.Tensor, root: int) -> torch.Tensor:
@@ -212,6 +220,11 @@ def chunked_bcast(x: torch.Tensor, root: int, errors=None) -> torch.Tensor:
 chunked_bcast.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# kernels 9 and 11: the one-hop scatter and gather (_chunked_scatter_kernel,
+# _chunked_gather_kernel)
+# ---------------------------------------------------------------------------
+
 def plain_chunked_scatter(x: torch.Tensor, root: int) -> torch.Tensor:
     """x (P, P, C, S): the ranks' inputs, of which the root's P blocks (by
     destination rank) are read -> (P, C, S): row r the root's block r. The
@@ -222,43 +235,77 @@ def plain_chunked_scatter(x: torch.Tensor, root: int) -> torch.Tensor:
 
 def chunked_scatter(x: torch.Tensor, root: int, errors=None) -> torch.Tensor:
     """Kernel 9 (replaces ``pallas_chunked.py:_chunked_scatter_kernel``).
-    Same contract as :func:`plain_chunked_scatter`."""
+    Same contract as :func:`plain_chunked_scatter`. The kernel waits on
+    nothing, so it has no error word: ``errors`` is taken and left as it
+    is."""
     if x.device.type != "cuda":
         return plain_chunked_scatter(x, root)
     P, _, C, S = x.shape
     if P == 1:
         return x[root].clone()
-    out, flags = _launch_relay(_SCATTER, x, root, (P, C, S),
-                               "scatter_relay_kernel")
+    what = "scatter_copy_kernel"
+    _pr._check_cuda(x, what)
+    _check_root(root, P, what)
+    lib = cuda_build.load()
+    dev = x.device
+    out = torch.empty((P, C, S), dtype=x.dtype, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.accl_ring_scatter(
+            _itemsize(x.dtype), x[root].data_ptr(),
+            cuda_build.pointer_table(out), P, C * S, root,
+            cuda_build.stream_handle(dev))
+    cuda_build.check(lib, rc, what)
     chunked_scatter.launches += 1
-    _pr._note_error_word(flags, "scatter_relay_kernel", errors)
     return out
 
 
 chunked_scatter.launches = 0
 
 
-def plain_chunked_gather(x: torch.Tensor, root: int) -> torch.Tensor:
+def plain_chunked_gather(x: torch.Tensor, root: int,
+                         out=None) -> torch.Tensor:
     """x (P, C, S): rank r's block -> (P, C, S): what the root gathers, slot
     j rank j's block. The kernel leaves slot ``root`` unwritten (the body
-    inserts the root's own block)."""
-    return x.clone()
+    inserts the root's own block); so does this version when it writes
+    into a given ``out``."""
+    if out is None:
+        return x.clone()
+    out[:root] = x[:root]
+    out[root + 1:] = x[root + 1:]
+    return out
 
 
-def chunked_gather(x: torch.Tensor, root: int, errors=None) -> torch.Tensor:
+def chunked_gather(x: torch.Tensor, root: int, errors=None,
+                   out=None) -> torch.Tensor:
     """Kernel 11 (replaces ``pallas_chunked.py:_chunked_gather_kernel``).
-    Same contract as :func:`plain_chunked_gather`: the other ranks' rows of
-    the kernel's (P, P, C, S) output are its relay store, not returned."""
+    Same contract as :func:`plain_chunked_gather`: the root's (P, C, S)
+    slots, written into ``out`` when given (contiguous, x's shape and
+    dtype), else into a new tensor. No error word, as for
+    :func:`chunked_scatter`."""
     if x.device.type != "cuda":
-        return plain_chunked_gather(x, root)
+        return plain_chunked_gather(x, root, out)
+    what = "gather_copy_kernel"
+    if out is not None and (out.shape != x.shape or out.dtype != x.dtype or
+                            out.device != x.device or
+                            not out.is_contiguous()):
+        raise ValueError(f"{what}: out must be a contiguous {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}")
     P, C, S = x.shape
     if P == 1:
-        return x.clone()
-    out, flags = _launch_relay(_GATHER, x, root, (P, P, C, S),
-                               "gather_relay_kernel")
+        return x.clone() if out is None else out
+    if out is None:
+        out = torch.empty_like(x)
+    _pr._check_cuda(x, what)
+    _check_root(root, P, what)
+    lib = cuda_build.load()
+    dev = x.device
+    with torch.cuda.device(dev):
+        rc = lib.accl_ring_gather(
+            _itemsize(x.dtype), cuda_build.pointer_table(x), out.data_ptr(),
+            P, C * S, root, cuda_build.stream_handle(dev))
+    cuda_build.check(lib, rc, what)
     chunked_gather.launches += 1
-    _pr._note_error_word(flags, "gather_relay_kernel", errors)
-    return out[root]
+    return out
 
 
 chunked_gather.launches = 0
@@ -407,11 +454,11 @@ def chunked_ar_body(x, *, P: int, func: reduceFunction, dtype,
 
 def _root_grid(x, *, P: int, root: int, blocks: int, n: int, per: int, dtype,
                wire):
-    """The relays' input grid (P, blocks, per), of which the relays read row
-    ``root`` only: the root's ``blocks`` blocks of ``n`` elements, in the
-    kernel dtype (``wire``'s, else ``dtype``), each zero-padded to ``per``.
-    A payload already in that form is a view; otherwise the other rows are
-    left unset."""
+    """The bcast's and scatter's input grid (P, blocks, per), of which the
+    kernels read row ``root`` only: the root's ``blocks`` blocks of ``n``
+    elements, in the kernel dtype (``wire``'s, else ``dtype``), each
+    zero-padded to ``per``. A payload already in that form is a view;
+    otherwise the other rows are left unset."""
     if wire is None and n == per and x.dtype == dtype and x.is_contiguous():
         return x.view(P, blocks, per)
     src = x[root].view(blocks, n)
@@ -423,7 +470,8 @@ def _root_grid(x, *, P: int, root: int, blocks: int, n: int, per: int, dtype,
 
 
 def _unwire_to(y, dtype, wire, out_dtype):
-    """A relay's output back from the kernel dtype to ``out_dtype``."""
+    """A rooted kernel's output back from the kernel dtype to
+    ``out_dtype``."""
     if wire is not None:
         y = _pr._from_wire(y, dtype, wire)
     return y.to(out_dtype)
@@ -450,8 +498,8 @@ def chunked_bcast_body(x, *, P: int, root: int, dtype, segment_bytes: int,
 def chunked_scatter_body(x, *, P: int, root: int, dtype, segment_bytes: int,
                          wire=None, errors=None):
     """(P, P*n) -> (P, n): rank r gets block r of the root's row. ``wire``
-    runs every hop in the wire dtype; the root's own block never rides it
-    and stays exact."""
+    carries every block in the wire dtype; the root's own block never rides
+    it and stays exact."""
     n = x.shape[-1] // P
     if P == 1:
         return x[:, :n].clone()
@@ -469,8 +517,9 @@ def chunked_gather_body(x, dest, *, P: int, root: int, dtype,
                         segment_bytes: int, wire=None, errors=None):
     """(P, n), (P, P*n) -> (P, P*n): the root's row of ``dest`` (the receive
     buffer, written in place) gets every rank's block in rank order.
-    ``wire`` runs every relay hop in the wire dtype; the root's own block
-    stays exact."""
+    ``wire`` carries every block in the wire dtype; the root's own block
+    stays exact. Where no wire and no padding intervene the kernel writes
+    the blocks straight into the root's row."""
     n = x.shape[-1]
     if P == 1:
         dest[root] = x[root]
@@ -485,6 +534,12 @@ def chunked_gather_body(x, dest, *, P: int, root: int, dtype,
         padded = torch.zeros((P, per), dtype=kdt, device=x.device)
         padded[:, :n] = xin
         padded = padded.view(P, C, seg_elems)
+    row = dest[root]
+    if wire is None and n == per and row.dtype == kdt and \
+            row.is_contiguous():
+        chunked_gather(padded, root, errors, out=row.view(P, C, seg_elems))
+        row[root * n:(root + 1) * n] = x[root]
+        return dest
     got = chunked_gather(padded, root, errors)
     flat = _unwire_to(got.reshape(P, per)[:, :n], dtype, wire, x.dtype)
     flat[root] = x[root]
@@ -495,10 +550,10 @@ def chunked_gather_body(x, dest, *, P: int, root: int, dtype,
 def chunked_reduce_body(x, *, P: int, root: int, func: reduceFunction,
                         dtype, segment_bytes: int, wire=None,
                         gather_wire=None, errors=None):
-    """(P, n) -> (n,): the segmented ring reduce-scatter, then the relay
+    """(P, n) -> (n,): the segmented ring reduce-scatter, then the one-hop
     gather of the folded chunks to the root: the root's result, in
     ``dtype``. ``wire`` compresses the reduce-scatter hops (full-precision
-    fold), ``gather_wire`` the relay hops (pure transport); the root's own
+    fold), ``gather_wire`` the gather (pure transport); the root's own
     partial never rides the wire."""
     n = x.shape[-1]
     if P == 1:
@@ -566,7 +621,8 @@ def build_chunked_ring_alltoall(comm: Communicator, dt: dataType,
 
 def _transport_wire(arith):
     """(wire torch dtype, int8 scale or None) of a compressing arith config,
-    else None: the relays carry the wire dtype end to end."""
+    else None: the rooted kernels and the all-to-all carry the wire dtype
+    end to end."""
     if arith is None or not arith.is_compressing:
         return None
     return (constants.to_torch_dtype(arith.compressed), arith.quant_scale)
@@ -591,8 +647,8 @@ def build_chunked_ring_bcast(comm: Communicator, root: int, dt: dataType,
 
 def build_chunked_ring_scatter(comm: Communicator, root: int, dt: dataType,
                                segment_bytes=None, arith=None) -> Callable:
-    """(world, world*n) -> (world, n): ring-relay scatter. A compressing
-    ``arith`` compresses every hop (pure transport)."""
+    """(world, world*n) -> (world, n): one-hop scatter. A compressing
+    ``arith`` carries every block in the wire dtype (pure transport)."""
     P = comm.world_size
     dtype = constants.to_torch_dtype(dt)
     seg = segment_bytes or constants.DEFAULT_SEGMENT_SIZE
@@ -608,10 +664,10 @@ def build_chunked_ring_scatter(comm: Communicator, root: int, dt: dataType,
 
 def build_chunked_ring_gather(comm: Communicator, root: int, dt: dataType,
                               segment_bytes=None, arith=None) -> Callable:
-    """(world, n), (world, world*n) -> (world, world*n): ring-relay gather
+    """(world, n), (world, world*n) -> (world, world*n): one-hop gather
     into the root's row of ``dest`` (written in place); ``prog(x, dest,
-    errors=None)``. A compressing ``arith`` compresses every hop (pure
-    transport)."""
+    errors=None)``. A compressing ``arith`` carries every block in the wire
+    dtype (pure transport)."""
     P = comm.world_size
     dtype = constants.to_torch_dtype(dt)
     seg = segment_bytes or constants.DEFAULT_SEGMENT_SIZE
@@ -629,7 +685,7 @@ def build_chunked_ring_reduce(comm: Communicator, root: int,
                               func: reduceFunction, dt: dataType,
                               segment_bytes=None, arith=None) -> Callable:
     """(world, n), (world, n) -> (world, n): segmented reduce-scatter then
-    relay gather into the root's row of ``dest`` (written in place);
+    one-hop gather into the root's row of ``dest`` (written in place);
     ``prog(x, dest, errors=None)``. A compressing ``arith``
     compresses every hop of both phases, except that a kernel already
     running in the wire dtype (an ``arith_is_compressed`` pair) is not

@@ -15,11 +15,13 @@ any failure exits non-zero and nothing is caught and skipped:
    the three plugin kernels (combine in f32 / bf16 / f16 / i32, SUM and
    MAX, with and without donate; the four casts; stochastic rounding with
    three seeds and per-row seeds; NaN, +-0, inf, subnormal and overflow
-   cases) and the three rooted relays (P in {2, 8}, roots 0, P-1 and a
-   middle rank, one and three segments of a ragged length, 1-, 2- and
-   4-byte elements with NaN and +-0), the all-to-all (P in {2, 3, 8}, one
-   and three segments, 1-, 2- and 4-byte elements with NaN and +-0, by
-   bits) and the fused MoE dispatch and combine (worlds 2, 3 and 8,
+   cases), the bcast relay (P in {2, 8}, roots 0, P-1 and a middle rank,
+   one and three segments of a ragged length, 1-, 2- and 4-byte elements
+   with NaN and +-0), the one-hop scatter and gather (the same cases at
+   lengths 1000, 1024 and 777, so that blocks take the 16-byte path, its
+   element tail and the element path, and 8-byte elements), the
+   all-to-all (P in {2, 3, 8}, one and three segments, 1-, 2- and 4-byte
+   elements with NaN and +-0, by bits) and the fused MoE dispatch and combine (worlds 2, 3 and 8,
    bidirectional on and off, an aligned and an uneven shape, f32 and bf16
    wires: integer-valued operands bit-equal, random ones within the f32
    summation bound, with TF32 off for the plain versions) with their
@@ -73,8 +75,9 @@ any failure exits non-zero and nothing is caught and skipped:
       ``gather`` and ``reduce`` (f32 SUM) over a size ladder (4 B, 64 KiB,
       4 MiB, 16 MiB and the full size: 1 GiB per rank for bcast and
       reduce, the root's 1 GiB for scatter, 128 MiB per rank for gather),
-      where the counters must show the relay kernels (and the segmented
-      reduce-scatter for reduce) from 8 MiB up and none below; explicit
+      where the counters must show the rooted kernels (and the segmented
+      reduce-scatter for reduce) from 8 MiB up and none below, and every
+      gather prints the peak memory it allocated beyond its buffers; explicit
       XLA / FLAT / TREE / RING at 64 MiB per rank wherever the op has the
       family; a bf16 wire through PALLAS bcast and reduce at 64 MiB.
       Bcast, scatter and gather are checked exactly, reduce against the
@@ -388,39 +391,49 @@ def check_plugin_kernels(gen) -> None:
 
 
 def check_relay_kernels(gen) -> None:
-    """The three rooted relays against their plain versions, by bits: P in
-    {2, 8}, roots 0, P-1 and a middle rank, one and three segments of a
-    ragged length, int8 / bf16 / f32 (random data with NaN, -NaN, +-0, inf
-    and subnormals). The rows a relay leaves unwritten, the root's, are not
-    compared."""
+    """The bcast relay and the one-hop scatter and gather against their
+    plain versions, by bits: P in {2, 8}, roots 0, P-1 and a middle rank,
+    one and three segments, int8 / bf16 / f32 (random data with NaN, -NaN,
+    +-0, inf and subnormals); the bcast at a ragged length, the scatter and
+    gather at S 1000, 1024 and 777 (blocks on the 16-byte path, with and
+    without an element tail, and blocks at odd offsets on the element
+    path) and in int64 too. The rows a kernel leaves unwritten, the
+    root's, are not compared."""
     import torch
     from accl_tpu_torch.parallel import pallas_chunked as pc
 
     def data(shape, dt):
         x = specials(math.prod(shape), gen).view(*shape)
-        return (x * 50).to(dt) if dt == torch.int8 else x.to(dt)
+        return x.to(dt) if dt.is_floating_point else (x * 50).to(dt)
 
-    n_cases, S = 0, 1000
+    n_cases = 0
     for P in (2, 8):
         for root in sorted({0, P // 2, P - 1}):
             keep = [r for r in range(P) if r != root]
-            for dt in (torch.int8, torch.bfloat16, torch.float32):
+            for dt in (torch.int8, torch.bfloat16, torch.float32,
+                       torch.int64):
                 for C in (1, 3):
-                    x, xs = data((P, C, S), dt), data((P, P, C, S), dt)
-                    for name, got, want in (
-                            ("bcast_relay_kernel", pc.chunked_bcast(x, root),
-                             pc.plain_chunked_bcast(x, root)),
-                            ("scatter_relay_kernel",
-                             pc.chunked_scatter(xs, root),
-                             pc.plain_chunked_scatter(xs, root)),
-                            ("gather_relay_kernel", pc.chunked_gather(x, root),
-                             pc.plain_chunked_gather(x, root))):
+                    cases = []
+                    if dt != torch.int64:
+                        x = data((P, C, 1000), dt)
+                        cases.append(("bcast_relay_kernel", 1000,
+                                      pc.chunked_bcast(x, root),
+                                      pc.plain_chunked_bcast(x, root)))
+                    for S in (1000, 1024, 777):
+                        x, xs = data((P, C, S), dt), data((P, P, C, S), dt)
+                        cases += [("scatter_copy_kernel", S,
+                                   pc.chunked_scatter(xs, root),
+                                   pc.plain_chunked_scatter(xs, root)),
+                                  ("gather_copy_kernel", S,
+                                   pc.chunked_gather(x, root),
+                                   pc.plain_chunked_gather(x, root))]
+                    for name, S, got, want in cases:
                         if not same_bits(got[keep], want[keep]):
                             fail(f"{name} != plain (P={P} root={root} {dt} "
-                                 f"C={C})")
+                                 f"C={C} S={S})")
                         n_cases += 1
     torch.cuda.synchronize()
-    log(f"phase 2: {n_cases} relay kernel-vs-plain cases bit-equal")
+    log(f"phase 2: {n_cases} rooted kernel-vs-plain cases bit-equal")
 
 
 def check_alltoall_kernels(gen) -> None:
@@ -911,15 +924,19 @@ def measure_plugin_kernels(gen) -> dict:
 
 
 def measure_relay_kernels(gen, big_ok: bool) -> dict:
-    """The relays at the main path's shapes, f32, P=8, root 3, 1 MiB
+    """The rooted kernels at the main path's shapes, f32, P=8, root 3, 1 MiB
     segments: the bcast of 1 GiB per rank, the scatter of the root's 1 GiB
     and the gather of 128 MiB per rank (a quarter of each when the card
     has less than 60 GiB). Bounds, n the elements of a bcast row or of one
     block: the function moves P n words for a bcast (the root's row read
-    once, P-1 rows written) and 2 (P-1) n for a scatter or gather; the
-    relays' own traffic is 2 (P-1) n (bcast) and P (P-1) n (a block
-    crosses one hop per position between its rank and the root, read and
-    written at each)."""
+    once, P-1 rows written) and 2 (P-1) n for a scatter or gather. The
+    bcast relay's own traffic (its ring bound) is 2 (P-1) n; the one-hop
+    scatter and gather move the function's own words, so their ring bound
+    is their bound. The bcast is timed with CUDA events around the call;
+    the scatter and gather, some ten times shorter, with the host's launch
+    work hidden and in turns with their plain versions and yardsticks
+    (``time_in_turns``), and their events around the bare call are logged
+    beside."""
     import torch
     from accl_tpu_torch.parallel import pallas_chunked as pc
 
@@ -930,7 +947,7 @@ def measure_relay_kernels(gen, big_ok: bool) -> dict:
     res = {}
 
     def record(name, got, want, x, fn_kernel, fn_plain, fn_lib, words,
-               ring_words, iters):
+               ring_words, iters, queued=False):
         err = 0.0
         for r in keep:                    # row by row: 1 GiB rows
             if not torch.equal(got[r], want[r]):
@@ -938,20 +955,24 @@ def measure_relay_kernels(gen, big_ok: bool) -> dict:
                      f"{tuple(x.shape)} (row {r})")
             err = max(err, (got[r] - want[r]).abs().max().item())
         del got, want
+        if queued:
+            ms = time_in_turns([fn_kernel, fn_plain, fn_lib], iters)
+        else:
+            ms = [time_ms(fn, iters) for fn in (fn_kernel, fn_plain, fn_lib)]
         res[name] = {
             "shape": list(x.shape), "max_abs_err": err,
-            "ms": time_ms(fn_kernel, iters),
-            "plain_ms": time_ms(fn_plain, iters),
-            "library_ms": time_ms(fn_lib, iters),
+            "ms": ms[0], "plain_ms": ms[1], "library_ms": ms[2],
             "bound_ms": words * 4 / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes",
             "ring_bound_ms": ring_words * 4 / HBM_BYTES_PER_S * 1e3,
         }
         r = res[name]
+        host = f", events around the call {time_ms(fn_kernel, iters)!r} ms" \
+            if queued else ""
         log(f"  {name} {tuple(x.shape)}: kernel {r['ms']!r} ms, plain "
             f"{r['plain_ms']!r} ms, library {r['library_ms']!r} ms, bound "
             f"{r['bound_ms']!r} ms, ring bound {r['ring_bound_ms']!r} ms, "
-            f"max_abs_err {err!r}")
+            f"max_abs_err {err!r}{host}")
 
     # bcast: every rank's (C, S) row, the root's read
     x = torch.randn((P, per_rank // 4 // S, S), generator=gen, device="cuda")
@@ -970,26 +991,25 @@ def measure_relay_kernels(gen, big_ok: bool) -> dict:
     blk = per_rank // P // 4 // S
     x = torch.randn((P, P, blk, S), generator=gen, device="cuda")
     n = blk * S
-    record("scatter_relay_kernel", pc.chunked_scatter(x, root),
+    record("scatter_copy_kernel", pc.chunked_scatter(x, root),
            pc.plain_chunked_scatter(x, root), x,
-           lambda: pc._launch_relay(pc._SCATTER, x, root, (P, blk, S),
-                                    "scatter_relay_kernel"),
+           lambda: pc.chunked_scatter(x, root),
            lambda: pc.plain_chunked_scatter(x, root),
            lambda: x[root].view(P, n).clone(),
-           2 * (P - 1) * n, P * (P - 1) * n, 3)
+           2 * (P - 1) * n, 2 * (P - 1) * n, 20, queued=True)
     del x
     torch.cuda.empty_cache()
 
-    # gather: every rank's block of per_rank / P bytes
+    # gather: every rank's block of per_rank / P bytes, into one (P, C, S)
     x = torch.randn((P, blk, S), generator=gen, device="cuda")
-    record("gather_relay_kernel", pc.chunked_gather(x, root),
+    into = torch.empty_like(x)
+    record("gather_copy_kernel", pc.chunked_gather(x, root),
            pc.plain_chunked_gather(x, root), x,
-           lambda: pc._launch_relay(pc._GATHER, x, root, (P, P, blk, S),
-                                    "gather_relay_kernel"),
-           lambda: pc.plain_chunked_gather(x, root),
+           lambda: pc.chunked_gather(x, root, out=into),
+           lambda: pc.plain_chunked_gather(x, root, into),
            lambda: x.reshape(-1).clone(),
-           2 * (P - 1) * n, P * (P - 1) * n, 3)
-    del x
+           2 * (P - 1) * n, 2 * (P - 1) * n, 20, queued=True)
+    del x, into
     torch.cuda.empty_cache()
     return res
 
@@ -2086,6 +2106,30 @@ def time_queued_ms(fn, iters: int) -> float:
     return statistics.median(samples)
 
 
+def time_in_turns(fns, iters: int) -> list:
+    """Median device time (ms) of each of ``fns``, taken as
+    ``time_queued_ms`` takes it but in turns: each round times every
+    function once, in forward order on even rounds and in reverse on odd
+    ones, so a drift of the card's clocks spreads over all alike."""
+    import torch
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    samples = [[] for _ in fns]
+    for it in range(iters):
+        idx = range(len(fns)) if it % 2 == 0 else reversed(range(len(fns)))
+        for i in idx:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(2_000_000)
+            a.record()
+            fns[i]()
+            b.record()
+            b.synchronize()
+            samples[i].append(a.elapsed_time(b))
+    return [statistics.median(t) for t in samples]
+
+
 def measure_pp_relay_kernel(gen) -> dict:
     """pp_relay_kernel at phase 3k's tick, (8, 512, 3072) f32 per channel
     (6 segments of 1 MiB). Bound: each channel's payload read once and
@@ -2142,8 +2186,8 @@ def wrappers() -> dict:
             "cast_kernel": cp.pallas_cast,
             "sr_kernel": cp.pallas_compress_stochastic,
             "bcast_relay_kernel": pc.chunked_bcast,
-            "scatter_relay_kernel": pc.chunked_scatter,
-            "gather_relay_kernel": pc.chunked_gather,
+            "scatter_copy_kernel": pc.chunked_scatter,
+            "gather_copy_kernel": pc.chunked_gather,
             "alltoall_phase_kernel": pc.chunked_alltoall,
             "a2a_mm_kernel": ca.a2a_mm,
             "mm_a2a_kernel": ca.mm_a2a,
@@ -2438,11 +2482,11 @@ def check_gather(y, x, wire: str) -> float:
 
 #: the root of each rooted op in phase 3c
 ROOT = {"bcast": 0, "scatter": 7, "gather": 3, "reduce": 5}
-#: the relay kernels each rooted op's PALLAS program launches
+#: the kernels each rooted op's PALLAS program launches
 RELAYS = {"bcast": ("bcast_relay_kernel",),
-          "scatter": ("scatter_relay_kernel",),
-          "gather": ("gather_relay_kernel",),
-          "reduce": ("chunked_rs_kernel", "gather_relay_kernel")}
+          "scatter": ("scatter_copy_kernel",),
+          "gather": ("gather_copy_kernel",),
+          "reduce": ("chunked_rs_kernel", "gather_copy_kernel")}
 
 
 def rooted_paths(gen, big_ok: bool) -> dict:
@@ -2510,8 +2554,14 @@ def rooted_paths(gen, big_ok: bool) -> dict:
             del s, r_
         elif op == "gather":
             s, r_ = buf(count, rand(count)), buf(count * P, pattern(count * P))
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
             p50 = p50_call(lambda: acc.gather(s, r_, count, root, **kw),
                            iters)
+            extra = torch.cuda.max_memory_allocated() - held
+            log(f"gather {nbytes} B/rank {algo}: peak allocation beyond the "
+                f"send and receive buffers {extra} B ({extra / GIB!r} GiB)")
             if not torch.equal(r_.data[root], s.data.reshape(-1)):
                 fail(f"gather {nbytes} B {algo}: wrong blocks at the root")
             kept_pattern(r_.data, root, f"gather {nbytes} B {algo}")
@@ -2551,11 +2601,11 @@ def rooted_paths(gen, big_ok: bool) -> dict:
             big = nbytes >= 8 * MIB
             if big and (resolved != "pallas" or min(relays) == 0):
                 fail(f"AUTO {op} at {nbytes} B: {resolved}, launches "
-                     f"{fired}: the relay kernels did not run")
+                     f"{fired}: the rooted kernels did not run")
             if not big and (resolved == "pallas" or any(relays) or
                             fired.get("chunked_rs_kernel", 0)):
                 fail(f"AUTO {op} at {nbytes} B: {resolved}, launches "
-                     f"{fired}: a relay kernel ran below 8 MiB")
+                     f"{fired}: a rooted kernel ran below 8 MiB")
     families = {"bcast": ("xla", "flat", "tree", "ring"),
                 "scatter": ("xla", "flat"),
                 "gather": ("xla", "flat", "ring"),
@@ -4004,8 +4054,8 @@ REPLACES = {
     "cast_kernel": "accl_tpu/ops/compression.py:43",
     "sr_kernel": "accl_tpu/ops/compression.py:119",
     "bcast_relay_kernel": "accl_tpu/parallel/pallas_chunked.py:430",
-    "scatter_relay_kernel": "accl_tpu/parallel/pallas_chunked.py:570",
-    "gather_relay_kernel": "accl_tpu/parallel/pallas_chunked.py:856",
+    "scatter_copy_kernel": "accl_tpu/parallel/pallas_chunked.py:570",
+    "gather_copy_kernel": "accl_tpu/parallel/pallas_chunked.py:856",
     "alltoall_phase_kernel": "accl_tpu/parallel/pallas_chunked.py:710",
     "a2a_mm_kernel": "accl_tpu/ops/collective_alltoall.py:230",
     "mm_a2a_kernel": "accl_tpu/ops/collective_alltoall.py:349",
@@ -4034,7 +4084,7 @@ SOURCE = {"ring_rs_kernel": "ring.cu", "ring_ag_kernel": "ring.cu",
           "chunked_rs_kernel": "ring.cu", "chunked_ag_kernel": "ring.cu",
           "combine_kernel": "plugins.cu", "cast_kernel": "plugins.cu",
           "sr_kernel": "plugins.cu", "bcast_relay_kernel": "ring.cu",
-          "scatter_relay_kernel": "ring.cu", "gather_relay_kernel": "ring.cu",
+          "scatter_copy_kernel": "ring.cu", "gather_copy_kernel": "ring.cu",
           "alltoall_phase_kernel": "ring.cu", "a2a_mm_kernel": "a2a.cu",
           "mm_a2a_kernel": "a2a.cu", "agmm_kernel": "cmatmul.cu",
           "mmrs_kernel": "cmatmul.cu", "wgrad_kernel": "cmatmul.cu",
@@ -4054,7 +4104,7 @@ PART = {"ring_rs_kernel": "allreduce", "ring_ag_kernel": "allreduce",
         "chunked_rs_kernel": "allreduce", "chunked_ag_kernel": "allreduce",
         "combine_kernel": "slice2", "cast_kernel": "slice2",
         "sr_kernel": "slice2", "bcast_relay_kernel": "rooted",
-        "scatter_relay_kernel": "rooted", "gather_relay_kernel": "rooted",
+        "scatter_copy_kernel": "rooted", "gather_copy_kernel": "rooted",
         "alltoall_phase_kernel": "alltoall", "a2a_mm_kernel": "moe",
         "mm_a2a_kernel": "moe", "agmm_kernel": "tp_mlp",
         "mmrs_kernel": "tp_mlp", "wgrad_kernel": "tp_train",

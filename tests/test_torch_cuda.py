@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (the ring kernels, the rooted relays, the
+"""The port's CUDA kernels (the ring kernels, the rooted ones, the
 all-to-all, the plugin lanes, the fused MoE dispatch, combine and a2a-wgrad,
 the collective matmuls with their gathered wgrad, the four flash
 attention kernels and the four of its head-packed arm, the two paged
@@ -155,7 +155,7 @@ def _combine_kernel_cases(gen):
 
 
 def _allgather_kernels(gen):
-    """ring_ag_kernel and chunked_ag_kernel, then the rooted relays (their
+    """ring_ag_kernel and chunked_ag_kernel, then the rooted kernels (their
     transport cousins), then the plugin cast and stochastic-round kernels
     (the wire)."""
     from accl_tpu_torch.parallel import pallas_chunked as pc
@@ -174,11 +174,13 @@ def _allgather_kernels(gen):
 
 
 def _relay_kernel_cases(gen):
-    """bcast_relay_kernel, scatter_relay_kernel and gather_relay_kernel
+    """bcast_relay_kernel, scatter_copy_kernel and gather_copy_kernel
     against their plain versions, by bits: P in {2, 3, 8}, roots 0, P-1 and
-    a middle rank, one and three segments of a ragged length, 1-, 2-, 4-
-    and 8-byte elements (f32 with NaN and +-0). The root's row, which a
-    relay leaves unwritten, is not compared."""
+    a middle rank, one and three segments of a ragged length (777) and,
+    for the scatter and gather, an aligned one (1024), so blocks take both
+    the 16-byte and the element path; 1-, 2-, 4- and 8-byte elements (f32
+    with NaN and +-0). The root's row, which these kernels leave unwritten,
+    is not compared."""
     from accl_tpu_torch.parallel import pallas_chunked as pc
 
     def data(shape, dtype):
@@ -192,17 +194,20 @@ def _relay_kernel_cases(gen):
             for dtype in (torch.int8, torch.bfloat16, torch.float32,
                           torch.int64):
                 for C in (1, 3):
-                    x, xs = data((P, C, 777), dtype), data((P, P, C, 777),
-                                                          dtype)
-                    for name, got, want in (
-                            ("bcast", pc.chunked_bcast(x, root),
-                             pc.plain_chunked_bcast(x, root)),
-                            ("scatter", pc.chunked_scatter(xs, root),
-                             pc.plain_chunked_scatter(xs, root)),
-                            ("gather", pc.chunked_gather(x, root),
-                             pc.plain_chunked_gather(x, root))):
-                        assert _same_bits(got[keep], want[keep]), \
-                            (name, P, root, dtype, C)
+                    x = data((P, C, 777), dtype)
+                    assert _same_bits(pc.chunked_bcast(x, root)[keep],
+                                      pc.plain_chunked_bcast(x, root)[keep]), \
+                        ("bcast", P, root, dtype, C)
+                    for S in (777, 1024):
+                        x, xs = data((P, C, S), dtype), \
+                            data((P, P, C, S), dtype)
+                        for name, got, want in (
+                                ("scatter", pc.chunked_scatter(xs, root),
+                                 pc.plain_chunked_scatter(xs, root)),
+                                ("gather", pc.chunked_gather(x, root),
+                                 pc.plain_chunked_gather(x, root))):
+                            assert _same_bits(got[keep], want[keep]), \
+                                (name, P, root, dtype, C, S)
 
 
 def _cast_and_round_cases(gen):
@@ -232,9 +237,10 @@ def _cast_and_round_cases(gen):
 def _accl_on_card(gen, monkeypatch):
     """The host API on the card against the same program on the CPU, on
     the flat, ring-kernel and segmented-kernel paths, each call completed
-    by its request, and the rooted collectives below and above the relays'
-    8 MiB threshold; then a ring timeout and a relay timeout fail their
-    requests."""
+    by its request, and the rooted collectives below and above their
+    kernels' 8 MiB threshold; then hop timeouts fail their requests: the
+    all-reduce's ring, the reduce's segmented reduce-scatter (its one-hop
+    gather waits on nothing) and the all-to-all."""
     import accl_tpu_torch as at
     from accl_tpu_torch.parallel import pallas_ring as pr
     for nbytes in (4, 1 << 20, 4 << 20, 16 << 20):
@@ -517,7 +523,8 @@ def _alltoall_and_moe_on_card(gen):
 def _rooted_on_card(gen):
     """bcast, scatter, gather and reduce through the host API on the card
     against the CPU, AUTO at 64 KiB and 16 MiB per rank (a plain family,
-    then the relays), the receive buffers pre-filled."""
+    then the PALLAS kernels: the gather's writes the root's receive row in
+    place), the receive buffers pre-filled."""
     import accl_tpu_torch as at
     f32 = at.dataType.float32
     for nbytes in (64 << 10, 16 << 20):
