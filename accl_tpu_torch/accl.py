@@ -11,9 +11,10 @@ buffer, syncing host mirrors unless ``from_device``/``to_device`` say the
 payload stays on the device. Ported so far: ``allreduce``,
 ``reduce_scatter`` and ``allgather`` with every algorithm family but
 MULTIAXIS; the rooted collectives ``bcast``, ``scatter``, ``gather`` and
-``reduce`` with every family the JAX package offers for them (the
-segmented relay kernels on ``PALLAS``); ``alltoall`` in its XLA, FLAT and
-PALLAS (phased ring-rotation kernel) families; ``barrier``; the local
+``reduce`` with every family the JAX package offers for them (the bcast
+relay and the one-hop scatter and gather copies on ``PALLAS``);
+``alltoall`` in its XLA, FLAT and PALLAS (one-hop copy kernel) families;
+``barrier``; the local
 primitives ``copy`` and ``combine``; and ``write_arithconfig``. Send/recv,
 sub-communicators and the resilience and observability tiers come with
 later slices.

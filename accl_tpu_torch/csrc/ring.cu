@@ -1,55 +1,53 @@
 // Ring collective kernels for Hopper (sm_90a), bound to Python with ctypes.
 //
 // Replaces the four Pallas TPU kernels that carry ACCL.allreduce:
-//   ring_rs_kernel     <- accl_tpu/parallel/pallas_ring.py     _rs_kernel
+//   rs_fold_kernel     <- accl_tpu/parallel/pallas_ring.py     _rs_kernel
 //   ring_ag_kernel     <- accl_tpu/parallel/pallas_ring.py     _ag_kernel
 //   chunked_rs_kernel  <- accl_tpu/parallel/pallas_chunked.py  _chunked_rs_kernel
 //   chunked_ag_kernel  <- accl_tpu/parallel/pallas_chunked.py  _chunked_ag_kernel
-// and the rooted collectives (reduce is chunked_rs_kernel then
+// the rooted collectives (reduce is chunked_rs_kernel then
 // gather_copy_kernel):
 //   bcast_relay_kernel    <- accl_tpu/parallel/pallas_chunked.py  _chunked_bcast_kernel
 //   scatter_copy_kernel   <- accl_tpu/parallel/pallas_chunked.py  _chunked_scatter_kernel
 //   gather_copy_kernel    <- accl_tpu/parallel/pallas_chunked.py  _chunked_gather_kernel
-// and the phased ring-rotation all-to-all:
-//   alltoall_phase_kernel <- accl_tpu/parallel/pallas_chunked.py  _chunked_alltoall_kernel
+// and the all-to-all:
+//   alltoall_copy_kernel  <- accl_tpu/parallel/pallas_chunked.py  _chunked_alltoall_kernel
 //
 // Rank model. A rank is a per-rank buffer reached through a pointer table
 // (RankPtrs): on one card every rank's row of a (P, ...) tensor, on
-// peer-mapped cards the peers' buffers. Rank r's portion of a launch is the
-// group of CTAs with blockIdx.z == r; blockIdx.y is the ring channel and
-// blockIdx.x cuts the segment into contiguous element ranges. One launch
-// runs one ring phase (all P-1 hops).
+// peer-mapped cards the peers' buffers.
 //
-// A hop is a read of the upstream rank's staged partial plus a fold with the
-// local chunk. The TPU kernel's two-deep receive slot becomes two staging
-// slots per rank and channel in global memory. Readiness ("content k is in
-// slot k%2") and capacity credits ("downstream has folded content k") are
-// flag words per (rank, channel, CTA), stored with st.release.gpu and read
-// with ld.acquire.gpu; staged data is read with ld.global.cg so no stale L1
-// line is ever folded. The all-gathers forward straight out of the
-// upstream rank's output rows, which are written once, so they need
-// readiness flags only.
+// Two designs live here. The segmented rings (chunked_rs_kernel,
+// chunked_ag_kernel), the VMEM-range all-gather ring (ring_ag_kernel) and
+// the bcast relay (bcast_relay_kernel) keep the TPU's schedule: rank r's
+// portion of a launch is the group of CTAs with blockIdx.z == r, blockIdx.y
+// the ring channel, blockIdx.x a contiguous element range of the segment,
+// and one launch runs one ring phase (all P-1 hops). A hop reads the
+// upstream rank's staged partial (or output rows) and folds or copies it.
+// The TPU kernel's two-deep receive slot becomes two staging slots per rank
+// and channel in global memory. Readiness ("content k is in slot k%2") and
+// capacity credits ("downstream has folded content k") are flag words per
+// (rank, channel, CTA), stored with st.release.gpu and read with
+// ld.acquire.gpu; staged data is read with ld.global.cg so no stale L1 line
+// is ever folded. The all-gathers and the bcast relay forward straight out
+// of the upstream rank's output rows, which are written once, so they need
+// readiness flags only. These four are launched cooperatively, so the grid
+// is co-resident or refused, and every spin is bounded by %globaltimer: a
+// spin that times out writes the error word and returns, every other
+// spinner sees the word and returns too, and the Python wrapper reads the
+// word after the launch and raises.
 //
-// The bcast relay moves a root's payload one neighbour at a time along the
-// ring (section "rooted relays" below); the all-to-all rotates every rank's
-// chunks round the ring, phase by phase. The scatter and gather do not
-// relay: each block goes straight from where it lies to where it belongs
-// (section "rooted one-hop copies"). All four are pure transport, templated
-// on the element's size, not its type: the TPU kernels run them in the wire
-// dtype.
-//
-// No hang: the rings, the bcast relay and the all-to-all are launched
-// cooperatively, so the grid is co-resident or refused, and every spin is
-// bounded by %globaltimer. A spin that times out writes the error word and
-// returns; every other spinner sees the word and returns too; the Python
-// wrapper reads the word after the launch and raises. The one-hop copies
-// wait on nothing and launch as ordinary grids.
+// The others do not relay (sections "reduce-scatter fold" and "one-hop
+// copies" below). On one HBM a ring only multiplies traffic: the VMEM-range
+// reduce-scatter folds each output element in one pass over its P inputs,
+// in the ring's hop order, and the scatter, gather and all-to-all copy each
+// block once from where it lies to where it belongs. They wait on nothing:
+// ordinary launches, no flags, no error word, 16-byte accesses.
 //
 // Bound. Every kernel here moves bytes and does at most one add per element
 // read, so device memory bandwidth bounds it (3.35 TB/s on an H100 SXM). The
-// ring kernels are simple on purpose: scalar coalesced accesses and a flag
-// round trip per hop; TMA, 16-byte vector accesses and fewer flags are later
-// work. The one-hop copies move 16 bytes per access (section below).
+// rings use scalar coalesced accesses and a flag round trip per hop; the
+// fold and the copies move 16 bytes per access.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -354,16 +352,104 @@ __device__ void ag_ring(const RankPtrs& x, const RankPtrs& out, int* flags, int 
 }
 
 // ---------------------------------------------------------------------------
-// the four kernels
+// reduce-scatter fold: one pass per output element, in the ring's hop order
 // ---------------------------------------------------------------------------
+//
+// _rs_kernel. x[q]: (P, L), rank q's chunks; out[r]: (L,). Rank r owns chunk
+// c = (r+1)%P, as in the ring. The ring builds that chunk along a chain:
+// rank c seeds it with Wire::enc(x[c][c]); rank c+1 folds its own chunk c
+// into what it received (fold_in, received first) and re-encodes the sum
+// for the next hop; ... rank c+P-1 = r folds last and stores in T. The TPU
+// runs the chain over its links, one hop per step, because a partial has
+// to travel to reach the next rank's chunk. On one HBM every rank's chunk
+// is one load away, so a thread replays the whole chain for its elements:
+// it reads x[c][c], x[c+1][c], ..., x[c+P-1][c] (mod P) and folds them in
+// that order with the same functions, wire roundings included. The result
+// is the ring's, bit for bit, in every dtype and wire; each input is read
+// once and each output written once, with no staging, no flags and no
+// cooperative launch.
+//
+// Bound: (P^2 + P) L elements of traffic over HBM bandwidth. The grid is
+// (16-byte vectors of a chunk, rank r), one vector per thread. A thread
+// issues its loads in groups of ACCL_FOLD_GROUP before it folds them, so a
+// group's loads are in flight together. A chunk that is not 16-byte aligned
+// on every rank, and the tail of an aligned chunk shorter than 16 bytes, go
+// element by element (the builders pad chunks to whole 128-lane rows, so on
+// the main path every chunk is aligned).
 
-// _rs_kernel: whole chunk as one segment, one channel
+#define ACCL_FOLD_GROUP 8
+
+// Step j (0..P-1) of one element's chain; v is that element of x[(c+j)%P][c].
+template <typename T, typename W>
+__device__ __forceinline__ void chain_step(W& carry, T& res, T v, int j, int P, int func,
+                                           float scale) {
+  if (j == 0) {
+    carry = Wire<T, W>::enc(v, scale);
+    return;
+  }
+  const T f = fold_in<T, W>(carry, v, func, scale, false);
+  if (j == P - 1) {
+    res = f;
+  } else {
+    carry = Wire<T, W>::enc(f, scale);
+  }
+}
+
 template <typename T, typename W>
 __global__ void __launch_bounds__(ACCL_THREADS)
-ring_rs_kernel(RankPtrs x, RankPtrs out, RankPtrs stage, int* flags, int P, long long L,
-               int func, float scale, unsigned long long timeout_ns) {
-  rs_ring<T, W>(x, out, stage, flags, P, 1, L, 1, 0, func, scale, false, timeout_ns);
+rs_fold_kernel(RankPtrs x, RankPtrs out, int P, long long L, int func, float scale) {
+  constexpr int V = 16 / sizeof(T);
+  const int r = blockIdx.y, c = (r + 1) % P;
+  const long long off = (long long)c * L;
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  T* __restrict__ o = static_cast<T*>(out.p[r]);
+  uintptr_t mis = reinterpret_cast<uintptr_t>(o);
+  for (int q = 0; q < P; ++q) mis |= reinterpret_cast<uintptr_t>(static_cast<const T*>(x.p[q]) + off);
+  long long done = 0;
+  if ((mis & 15) == 0) {
+    const long long nv = L / V;
+    for (long long i = tid; i < nv; i += stride) {
+      W carry[V];
+      T res[V];
+      for (int j0 = 0; j0 < P; j0 += ACCL_FOLD_GROUP) {
+        uint4 buf[ACCL_FOLD_GROUP];
+#pragma unroll
+        for (int g = 0; g < ACCL_FOLD_GROUP; ++g) {
+          if (j0 + g < P) {
+            const T* src = static_cast<const T*>(x.p[(c + j0 + g) % P]) + off;
+            buf[g] = reinterpret_cast<const uint4*>(src)[i];
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < ACCL_FOLD_GROUP; ++g) {
+          if (j0 + g < P) {
+            T v[V];
+            memcpy(v, &buf[g], 16);
+#pragma unroll
+            for (int k = 0; k < V; ++k) chain_step<T, W>(carry[k], res[k], v[k], j0 + g, P, func, scale);
+          }
+        }
+      }
+      uint4 w;
+      memcpy(&w, res, 16);
+      reinterpret_cast<uint4*>(o)[i] = w;
+    }
+    done = nv * V;
+  }
+  for (long long e = done + tid; e < L; e += stride) {
+    W carry;
+    T res;
+    for (int j = 0; j < P; ++j)
+      chain_step<T, W>(carry, res, static_cast<const T*>(x.p[(c + j) % P])[off + e], j, P, func,
+                       scale);
+    o[e] = res;
+  }
 }
+
+// ---------------------------------------------------------------------------
+// the ring kernels
+// ---------------------------------------------------------------------------
 
 // _chunked_rs_kernel: C segments over two channels, optionally counter-rotating
 template <typename T, typename W>
@@ -441,23 +527,27 @@ bcast_relay_kernel(RankPtrs x, RankPtrs out, int* flags, int P, int C, long long
 }
 
 // ---------------------------------------------------------------------------
-// rooted one-hop copies: scatter and gather
+// one-hop copies: scatter, gather and all-to-all
 // ---------------------------------------------------------------------------
 //
 // What the TPU kernels compute: a scatter sets out[r] = x[root][r], a gather
-// sets slot s of the root's output to x[s], for every rank but the root.
-// They relay because ICI is a torus of neighbour links: a block moves one
-// ring position per hop and is read and written at each, P (P-1) / 2 block
-// copies in all where the function needs P - 1. On one card every rank is
-// a row in the same HBM, so here each block goes straight from where it
-// lies to where it belongs, read once and written once: no ring positions,
-// no staging slots, no flags, nothing waits on another CTA. Through
-// peer-mapped cards on NVSwitch the root's NVLink port would bound a
-// scatter or gather either way, so one hop is right there too.
+// sets slot s of the root's output to x[s], for every rank but the root; an
+// all-to-all sets out[r][s] = x[s][r] for every pair s != r. They relay
+// because ICI is a torus of neighbour links: a block moves one ring
+// position per hop and is read and written at each, P (P-1) / 2 block
+// copies in all where a scatter or gather needs P - 1 (the all-to-all
+// moves each rank's chunk for rank r+s over s hops, 4x the function's bytes
+// at P = 8). On one card every rank is a row in the same HBM, so here each
+// block goes straight from where it lies to where it belongs, read once and
+// written once: no ring positions, no staging slots, no flags, nothing
+// waits on another CTA. Through peer-mapped cards on NVSwitch the root's
+// NVLink port would bound a scatter or gather either way, and every pair of
+// cards has its own link for the all-to-all, so one hop is right there too.
 //
-// Bound: 2 (P-1) n elements of traffic over HBM bandwidth. The design spends
-// the whole card on it: blockIdx.y picks the block, and blockIdx.x covers
-// it in one pass, one 16-byte access per thread, so the grid's CTAs sweep
+// Bound: 2 (P-1) n elements of traffic over HBM bandwidth for a scatter or
+// gather, 2 P (P-1) n for an all-to-all (n a block's elements). The design spends
+// the whole card on it: blockIdx.y (and for the all-to-all blockIdx.z)
+// picks the block, and blockIdx.x covers it in one pass, one 16-byte access per thread, so the grid's CTAs sweep
 // HBM in address order and the resident ones (eight of 256 threads per SM)
 // keep some 2048 loads in flight per SM. On an H100 80GB HBM3 at 700 W
 // (tools/copy_variants.py, P 8, 128 MiB blocks) that beats a persistent
@@ -504,74 +594,18 @@ gather_copy_kernel(RankPtrs x, T* __restrict__ out, long long n, int root) {
   copy_block(out + (long long)s * n, static_cast<const T*>(x.p[s]), n);
 }
 
-// ---------------------------------------------------------------------------
-// phased ring-rotation all-to-all
-// ---------------------------------------------------------------------------
-//
-// _chunked_alltoall_kernel. x[r]: (P, C, S), rank r's chunks by destination
-// rank; out[r]: (P, C, S) by source rank, row r never written (the body
-// inserts the rank's own chunk exactly); bounce[r]: (2, C, S). Phase s
-// (1..P-1) moves every rank's chunk for rank r+s s hops right, segment by
-// segment. Every rank runs the same global steps g = C s(s-1)/2 + h C + c
-// (hop h of phase s, segment c): at step g rank r takes the segment its left
-// neighbour sends at that step, read where it lies (the left's input chunk
-// at hop 0, the left's bounce slot h%2 after it), and stores it in its
-// output row r-s at the phase's last hop, else in its own bounce slot
-// (h+1)%2, which its right neighbour reads at step g+C. So per hop a segment
-// is read once and written once, as the TPU kernel's HBM traffic is; its
-// send slot and remote copy become the direct read.
-//
-// One progress word per (rank, CTA): prog = g+1 once step g is done. To the
-// right neighbour it is readiness (the bounce segment stored at step g is
-// there); to the left it is the credit (the left's segment of step g has
-// been read). A bounce slot's previous content was stored at least 2C steps
-// earlier and read by the right neighbour C steps after that, so before
-// overwriting a slot at step g a rank waits for its right neighbour to have
-// finished step g-C; before reading the left's bounce it waits for the left
-// to have finished step g-C. One chain over global steps spans all hops and
-// phases, so a fast rank never overwrites a slot that still holds the
-// previous hop's tail segments. Every wait is on a neighbour's step g-C < g,
-// so the schedule cannot deadlock.
+// _chunked_alltoall_kernel. x[s]: (P, n), rank s's chunks by destination
+// rank; out[r]: (P, n), rank r's chunks by source rank. blockIdx.z = r is the
+// destination, blockIdx.y = j covers source j + (j >= r): each rank's own
+// slot out[r][r] is left to the body, which inserts it exactly. out must not
+// alias x: an in-place all-to-all is a transposition, and would read blocks
+// that other CTAs have already overwritten.
 template <typename T>
 __global__ void __launch_bounds__(ACCL_THREADS)
-alltoall_phase_kernel(RankPtrs x, RankPtrs out, RankPtrs bounce, int* flags, int P, int C,
-                      long long S, unsigned long long timeout_ns) {
-  const int r = blockIdx.z, b = blockIdx.x, B = gridDim.x;
-  const int left = (r - 1 + P) % P, right = (r + 1) % P;
-  int* const err = flags + P * B;
-  auto prog = [&](int rank) { return flags + rank * B + b; };
-  const long long per = (S + B - 1) / B;
-  const long long lo = min(S, (long long)b * per), hi = min(S, lo + per);
-  const long long slot = (long long)C * S;
-  const T* lx = static_cast<const T*>(x.p[left]);
-  const T* lb = static_cast<const T*>(bounce.p[left]);
-  T* mb = static_cast<T*>(bounce.p[r]);
-  T* o = static_cast<T*>(out.p[r]);
-  int g = 0;
-  for (int s = 1; s < P; ++s) {
-    for (int h = 0; h < s; ++h) {
-      const bool last = (h == s - 1);
-      for (int c = 0; c < C; ++c, ++g) {
-        const T* src;
-        if (h == 0) {
-          src = lx + ((long long)((left + s) % P) * C + c) * S;
-        } else {
-          if (!block_wait(prog(left), g - C + 1, err, timeout_ns)) return;
-          src = lb + (h & 1) * slot + (long long)c * S;
-        }
-        T* dst;
-        if (last) {
-          dst = o + ((long long)((r - s + P) % P) * C + c) * S;
-        } else {
-          if (!block_wait(prog(right), g - C + 1, err, timeout_ns)) return;
-          dst = mb + ((h + 1) & 1) * slot + (long long)c * S;
-        }
-        copy_slice(dst, src, lo, hi, h > 0);
-        block_fence();
-        if (threadIdx.x == 0) st_release(prog(r), g + 1);
-      }
-    }
-  }
+alltoall_copy_kernel(RankPtrs x, RankPtrs out, long long n) {
+  const int r = blockIdx.z, s = blockIdx.y + (blockIdx.y >= r);
+  copy_block(static_cast<T*>(out.p[r]) + (long long)s * n,
+             static_cast<const T*>(x.p[s]) + (long long)r * n, n);
 }
 
 // ---------------------------------------------------------------------------
@@ -580,9 +614,10 @@ alltoall_phase_kernel(RankPtrs x, RankPtrs out, RankPtrs bounce, int* flags, int
 
 template <typename T, typename W>
 static const void* rs_fn(int chunked) {
-  return chunked ? (const void*)chunked_rs_kernel<T, W> : (const void*)ring_rs_kernel<T, W>;
+  return chunked ? (const void*)chunked_rs_kernel<T, W> : (const void*)rs_fold_kernel<T, W>;
 }
 
+// chunked=0: rs_fold_kernel, else chunked_rs_kernel
 static const void* rs_resolve(int chunked, int dtype, int wire) {
   if (wire == DT_NONE || wire == dtype) {
     switch (dtype) {
@@ -605,6 +640,16 @@ static const void* rs_resolve(int chunked, int dtype, int wire) {
   return nullptr;
 }
 
+static int dt_size(int dtype) {
+  switch (dtype) {
+    case DT_INT8: return 1;
+    case DT_F16: case DT_BF16: return 2;
+    case DT_F32: case DT_I32: return 4;
+    case DT_F64: case DT_I64: return 8;
+  }
+  return 0;
+}
+
 static const void* ag_resolve(int chunked, int itemsize) {
   switch (itemsize) {
     case 1: return chunked ? (const void*)chunked_ag_kernel<uint8_t> : (const void*)ring_ag_kernel<uint8_t>;
@@ -615,23 +660,16 @@ static const void* ag_resolve(int chunked, int itemsize) {
   return nullptr;
 }
 
-enum { KIND_RS = 0, KIND_AG = 1, KIND_BCAST = 2, KIND_ALLTOALL = 5 };
+// the kernels that wait on flags: the reduce-scatter and all-gather rings
+// and the bcast relay
+enum { KIND_RS = 0, KIND_AG = 1, KIND_BCAST = 2 };
 
-template <typename T>
-static const void* relay_fn(int kind) {
-  switch (kind) {
-    case KIND_BCAST: return (const void*)bcast_relay_kernel<T>;
-    case KIND_ALLTOALL: return (const void*)alltoall_phase_kernel<T>;
-  }
-  return nullptr;
-}
-
-static const void* relay_resolve(int kind, int itemsize) {
+static const void* bcast_resolve(int itemsize) {
   switch (itemsize) {
-    case 1: return relay_fn<uint8_t>(kind);
-    case 2: return relay_fn<uint16_t>(kind);
-    case 4: return relay_fn<uint32_t>(kind);
-    case 8: return relay_fn<uint64_t>(kind);
+    case 1: return (const void*)bcast_relay_kernel<uint8_t>;
+    case 2: return (const void*)bcast_relay_kernel<uint16_t>;
+    case 4: return (const void*)bcast_relay_kernel<uint32_t>;
+    case 8: return (const void*)bcast_relay_kernel<uint64_t>;
   }
   return nullptr;
 }
@@ -666,29 +704,36 @@ static cudaError_t launch(const void* fn, int B, int nchan, int P, void** args,
   return cudaGetLastError();
 }
 
-template <typename T>
-static const void* copy_fn(bool gather) {
-  return gather ? (const void*)gather_copy_kernel<T> : (const void*)scatter_copy_kernel<T>;
-}
+enum { COPY_SCATTER = 0, COPY_GATHER = 1, COPY_ALLTOALL = 2 };
 
-static const void* copy_resolve(bool gather, int itemsize) {
-  switch (itemsize) {
-    case 1: return copy_fn<uint8_t>(gather);
-    case 2: return copy_fn<uint16_t>(gather);
-    case 4: return copy_fn<uint32_t>(gather);
-    case 8: return copy_fn<uint64_t>(gather);
+template <typename T>
+static const void* copy_fn(int kind) {
+  switch (kind) {
+    case COPY_SCATTER: return (const void*)scatter_copy_kernel<T>;
+    case COPY_GATHER: return (const void*)gather_copy_kernel<T>;
+    case COPY_ALLTOALL: return (const void*)alltoall_copy_kernel<T>;
   }
   return nullptr;
 }
 
-// An ordinary launch of (bx, P - 1) CTAs, bx covering a block's 16-byte
+static const void* copy_resolve(int kind, int itemsize) {
+  switch (itemsize) {
+    case 1: return copy_fn<uint8_t>(kind);
+    case 2: return copy_fn<uint16_t>(kind);
+    case 4: return copy_fn<uint32_t>(kind);
+    case 8: return copy_fn<uint64_t>(kind);
+  }
+  return nullptr;
+}
+
+// An ordinary launch of (bx, gy, gz) CTAs, bx covering n elements' 16-byte
 // vectors once.
-static cudaError_t launch_copy(const void* fn, int P, long long n, int itemsize,
+static cudaError_t launch_copy(const void* fn, int gy, int gz, long long n, int itemsize,
                                void** args, cudaStream_t stream) {
   const long long vec = ((long long)itemsize * n + 15) / 16;
   const long long bx = (vec + ACCL_THREADS - 1) / ACCL_THREADS;
   if (bx > 0x7fffffffLL) return cudaErrorInvalidValue;
-  cudaError_t e = cudaLaunchKernel(fn, dim3((unsigned)bx, (unsigned)(P - 1)),
+  cudaError_t e = cudaLaunchKernel(fn, dim3((unsigned)bx, (unsigned)gy, (unsigned)gz),
                                    dim3(ACCL_THREADS), args, 0, stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
@@ -701,31 +746,36 @@ extern "C" {
 int accl_ring_capacity(int kind, int chunked, int dtype, int wire, int* ctas) {
   const void* fn = kind == KIND_RS   ? rs_resolve(chunked, dtype, wire)
                    : kind == KIND_AG ? ag_resolve(chunked, dtype)
-                                     : relay_resolve(kind, dtype);
+                                     : bcast_resolve(dtype);
   if (fn == nullptr) return -1;
   return (int)capacity(fn, ctas);
 }
 
 int accl_ring_threads() { return ACCL_THREADS; }
 
-// Reduce-scatter ring phase. chunked=0: ring_rs_kernel (C must be 1).
-int accl_ring_rs(int chunked, int dtype, int wire, const uint64_t* x, const uint64_t* out,
+// rs_fold_kernel: x the per-rank (P, L) chunk rows, out the per-rank (L,)
+// rows; an ordinary launch of (vectors of L, P) CTAs.
+int accl_ring_rs_fold(int dtype, int wire, const uint64_t* x, const uint64_t* out, int P,
+                      long long L, int func, float scale, void* stream) {
+  const void* fn = rs_resolve(0, dtype, wire);
+  if (fn == nullptr || P < 2 || P > ACCL_MAX_RANKS || L < 1) return (int)cudaErrorInvalidValue;
+  RankPtrs tx = table(x, P), to = table(out, P);
+  void* args[] = {&tx, &to, &P, &L, &func, &scale};
+  return (int)launch_copy(fn, P, 1, L, dt_size(dtype), args, static_cast<cudaStream_t>(stream));
+}
+
+// chunked_rs_kernel: one reduce-scatter ring phase over C segments.
+int accl_ring_rs(int dtype, int wire, const uint64_t* x, const uint64_t* out,
                  const uint64_t* stage, void* flags, int P, int C, long long S, int B,
                  int nchan, int bidir, int func, float scale, double timeout_s,
                  void* stream) {
-  const void* fn = rs_resolve(chunked, dtype, wire);
+  const void* fn = rs_resolve(1, dtype, wire);
   if (fn == nullptr || P < 1 || P > ACCL_MAX_RANKS) return (int)cudaErrorInvalidValue;
-  if (!chunked && (C != 1 || nchan != 1)) return (int)cudaErrorInvalidValue;
   RankPtrs tx = table(x, P), to = table(out, P), ts = table(stage, P);
   int* f = static_cast<int*>(flags);
   unsigned long long tns = (unsigned long long)(timeout_s * 1e9);
-  long long L = S;
-  if (chunked) {
-    void* args[] = {&tx, &to, &ts, &f, &P, &C, &S, &bidir, &func, &scale, &tns};
-    return (int)launch(fn, B, nchan, P, args, static_cast<cudaStream_t>(stream));
-  }
-  void* args[] = {&tx, &to, &ts, &f, &P, &L, &func, &scale, &tns};
-  return (int)launch(fn, B, 1, P, args, static_cast<cudaStream_t>(stream));
+  void* args[] = {&tx, &to, &ts, &f, &P, &C, &S, &bidir, &func, &scale, &tns};
+  return (int)launch(fn, B, nchan, P, args, static_cast<cudaStream_t>(stream));
 }
 
 // All-gather ring phase over elements of `itemsize` bytes.
@@ -747,48 +797,50 @@ int accl_ring_ag(int chunked, int itemsize, const uint64_t* x, const uint64_t* o
   return (int)launch(fn, B, 1, P, args, static_cast<cudaStream_t>(stream));
 }
 
-// The bcast relay (KIND_BCAST) or the all-to-all (KIND_ALLTOALL, root
-// unused), over elements of `itemsize` bytes; stage is the all-to-all's
-// bounce, unused by the bcast.
-int accl_ring_relay(int kind, int itemsize, const uint64_t* x, const uint64_t* out,
-                    const uint64_t* stage, void* flags, int P, int C, long long S, int B,
-                    int root, double timeout_s, void* stream) {
-  const void* fn = relay_resolve(kind, itemsize);
+// The bcast relay over elements of `itemsize` bytes.
+int accl_ring_relay(int itemsize, const uint64_t* x, const uint64_t* out, void* flags, int P,
+                    int C, long long S, int B, int root, double timeout_s, void* stream) {
+  const void* fn = bcast_resolve(itemsize);
   if (fn == nullptr || P < 1 || P > ACCL_MAX_RANKS || root < 0 || root >= P)
     return (int)cudaErrorInvalidValue;
   RankPtrs tx = table(x, P), to = table(out, P);
   int* f = static_cast<int*>(flags);
   unsigned long long tns = (unsigned long long)(timeout_s * 1e9);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kind == KIND_ALLTOALL) {
-    RankPtrs tb = table(stage, P);
-    void* args[] = {&tx, &to, &tb, &f, &P, &C, &S, &tns};
-    return (int)launch(fn, B, 1, P, args, st);
-  }
   void* args[] = {&tx, &to, &f, &P, &C, &S, &root, &tns};
-  return (int)launch(fn, B, 1, P, args, st);
+  return (int)launch(fn, B, 1, P, args, static_cast<cudaStream_t>(stream));
 }
 
 // scatter_copy_kernel: x is the root's (P, n) blocks, out the per-rank rows.
 int accl_ring_scatter(int itemsize, const void* x, const uint64_t* out, int P, long long n,
                       int root, void* stream) {
-  const void* fn = copy_resolve(false, itemsize);
+  const void* fn = copy_resolve(COPY_SCATTER, itemsize);
   if (fn == nullptr || P < 2 || P > ACCL_MAX_RANKS || root < 0 || root >= P || n < 1)
     return (int)cudaErrorInvalidValue;
   RankPtrs to = table(out, P);
   void* args[] = {&x, &to, &n, &root};
-  return (int)launch_copy(fn, P, n, itemsize, args, static_cast<cudaStream_t>(stream));
+  return (int)launch_copy(fn, P - 1, 1, n, itemsize, args, static_cast<cudaStream_t>(stream));
 }
 
 // gather_copy_kernel: x the per-rank blocks, out the root's (P, n) slots.
 int accl_ring_gather(int itemsize, const uint64_t* x, void* out, int P, long long n, int root,
                      void* stream) {
-  const void* fn = copy_resolve(true, itemsize);
+  const void* fn = copy_resolve(COPY_GATHER, itemsize);
   if (fn == nullptr || P < 2 || P > ACCL_MAX_RANKS || root < 0 || root >= P || n < 1)
     return (int)cudaErrorInvalidValue;
   RankPtrs tx = table(x, P);
   void* args[] = {&tx, &out, &n, &root};
-  return (int)launch_copy(fn, P, n, itemsize, args, static_cast<cudaStream_t>(stream));
+  return (int)launch_copy(fn, P - 1, 1, n, itemsize, args, static_cast<cudaStream_t>(stream));
+}
+
+// alltoall_copy_kernel: x and out the per-rank (P, n) rows, by destination
+// and by source rank; out must not alias x.
+int accl_ring_alltoall(int itemsize, const uint64_t* x, const uint64_t* out, int P, long long n,
+                       void* stream) {
+  const void* fn = copy_resolve(COPY_ALLTOALL, itemsize);
+  if (fn == nullptr || P < 2 || P > ACCL_MAX_RANKS || n < 1) return (int)cudaErrorInvalidValue;
+  RankPtrs tx = table(x, P), to = table(out, P);
+  void* args[] = {&tx, &to, &n};
+  return (int)launch_copy(fn, P - 1, P, n, itemsize, args, static_cast<cudaStream_t>(stream));
 }
 
 const char* accl_ring_error_string(int code) {

@@ -107,17 +107,19 @@ def _declare_ring(lib: ctypes.CDLL) -> None:
     lib.accl_ring_capacity.restype = c_int
     lib.accl_ring_threads.argtypes = []
     lib.accl_ring_threads.restype = c_int
-    lib.accl_ring_rs.argtypes = [c_int, c_int, c_int, u64p, u64p, u64p, c_p,
-                                 c_int, c_int, c_ll, c_int, c_int, c_int,
-                                 c_int, ctypes.c_float, ctypes.c_double, c_p]
+    lib.accl_ring_rs_fold.argtypes = [c_int, c_int, u64p, u64p, c_int, c_ll,
+                                      c_int, ctypes.c_float, c_p]
+    lib.accl_ring_rs_fold.restype = c_int
+    lib.accl_ring_rs.argtypes = [c_int, c_int, u64p, u64p, u64p, c_p, c_int,
+                                 c_int, c_ll, c_int, c_int, c_int, c_int,
+                                 ctypes.c_float, ctypes.c_double, c_p]
     lib.accl_ring_rs.restype = c_int
     lib.accl_ring_ag.argtypes = [c_int, c_int, u64p, u64p, c_p, c_int, c_int,
                                  c_ll, c_int, c_int, c_int, ctypes.c_double,
                                  c_p]
     lib.accl_ring_ag.restype = c_int
-    lib.accl_ring_relay.argtypes = [c_int, c_int, u64p, u64p, u64p, c_p,
-                                    c_int, c_int, c_ll, c_int, c_int,
-                                    ctypes.c_double, c_p]
+    lib.accl_ring_relay.argtypes = [c_int, u64p, u64p, c_p, c_int, c_int,
+                                    c_ll, c_int, c_int, ctypes.c_double, c_p]
     lib.accl_ring_relay.restype = c_int
     lib.accl_ring_scatter.argtypes = [c_int, c_p, u64p, c_int, c_ll, c_int,
                                       c_p]
@@ -125,6 +127,8 @@ def _declare_ring(lib: ctypes.CDLL) -> None:
     lib.accl_ring_gather.argtypes = [c_int, u64p, c_p, c_int, c_ll, c_int,
                                      c_p]
     lib.accl_ring_gather.restype = c_int
+    lib.accl_ring_alltoall.argtypes = [c_int, u64p, u64p, c_int, c_ll, c_p]
+    lib.accl_ring_alltoall.restype = c_int
 
 
 def _declare_plugins(lib: ctypes.CDLL) -> None:

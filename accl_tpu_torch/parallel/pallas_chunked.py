@@ -2,7 +2,7 @@
 ``accl_tpu/parallel/pallas_chunked.py``): the reduce-scatter and all-gather
 above ``pallas_ring.VMEM_PAYLOAD_THRESHOLD`` staged bytes, up to 1 GiB per
 rank, the rooted collectives bcast, scatter, gather and reduce, and the
-phased ring-rotation all-to-all.
+all-to-all.
 
 Each chunk is cut into C segments of ``_geometry``'s size. Six kernels,
 each with its plain PyTorch version, a launch counter and a wrapper (plain
@@ -26,25 +26,28 @@ version on CPU tensors, the CUDA kernel on CUDA tensors, no fallback):
 * :func:`chunked_gather` replaces ``_chunked_gather_kernel``: each rank's
   block goes straight to its slot at the root. Kernel:
   ``gather_copy_kernel``.
+* :func:`chunked_alltoall` replaces ``_chunked_alltoall_kernel``: each
+  rank's chunk for rank r goes straight to slot s of rank r. Kernel:
+  ``alltoall_copy_kernel``.
 
 All are bound by device memory bandwidth. On the card the reduce-scatter's
 and all-gather's two channels are separate CTA groups that run at once,
 each with its own two staging slots and flag words; the credit chain runs
 over a channel's global step counter across segment boundaries, as on the
-TPU. The bcast relay and the all-to-all are pure transport, run in the
-wire dtype: the relay on one channel with readiness words per segment, the
-all-to-all with one progress word per rank that is its right neighbour's
-readiness and its left neighbour's credit, over one global step count.
+TPU. The bcast relay is pure transport, run in the wire dtype on one
+channel with readiness words per segment.
 
-The scatter and gather depart from the TPU's schedule. The TPU kernels
-relay their blocks round the ring because ICI links only neighbours, so a
-block is read and written once per hop: P (P-1) / 2 block copies where the
-function needs P - 1, 4x its bytes at P = 8. Every rank of this port lies
-in one HBM, so the kernels copy each block once, from where it lies to
-where it belongs, with the whole card and 16-byte accesses, and nothing
-waits: no flags, no error word, an ordinary launch. Their bound is the
-function's own, 2 (P-1) n elements moved. They are pure transport too,
-and compute exactly what the TPU kernels do, bit for bit.
+The scatter, gather and all-to-all depart from the TPU's schedule. The TPU
+kernels relay their blocks round the ring because ICI links only
+neighbours, so a block is read and written once per hop: P (P-1) / 2
+block copies where a scatter or gather needs P - 1, and for the all-to-all
+4x the function's bytes at P = 8. Every rank of this port lies in one HBM,
+so the kernels copy each block once, from where it lies to where it
+belongs, with the whole card and 16-byte accesses, and nothing waits: no
+flags, no error word, an ordinary launch. Their bound is the function's
+own, 2 (P-1) n elements moved for a scatter or gather and 2 P (P-1) n for
+an all-to-all. They are pure transport too, run in the wire dtype, and
+compute exactly what the TPU kernels do, bit for bit.
 
 The bodies keep the JAX package's host-side policy: the stride padding of
 each chunk into the uniform (P, C, S) grid, the per-parity realignment for
@@ -117,7 +120,7 @@ def chunked_reduce_scatter(x: torch.Tensor, func: reduceFunction, wire=None,
         return plain_chunked_reduce_scatter(x, func, wire, bidirectional)
     if x.shape[0] == 1:
         return x[:, 0].clone()
-    out, flags = _pr._launch_rs(1, x, func, wire, bidirectional)
+    out, flags = _pr._launch_rs(x, func, wire, bidirectional)
     chunked_reduce_scatter.launches += 1
     _pr._note_error_word(flags, "chunked_rs_kernel", errors)
     return out
@@ -156,34 +159,26 @@ chunked_allgather.launches = 0
 # kernel 8: the bcast relay (_chunked_bcast_kernel)
 # ---------------------------------------------------------------------------
 
-#: the bcast relay's and the all-to-all's kernel kinds (``KIND_*`` of
-#: csrc/ring.cu)
-_BCAST, _ALLTOALL = 2, 5
+#: the bcast relay's kernel kind (``KIND_BCAST`` of csrc/ring.cu)
+_BCAST = 2
 
 
-def _launch_relay(kind: int, x: torch.Tensor, root: int, out_shape,
-                  what: str):
-    """Enqueue the bcast relay or the all-to-all (``root`` unused) on the
-    card; x's rows are the ranks' inputs. Returns (out, flags); the caller
-    checks the flags' error word."""
-    P = x.shape[0]
-    C, S = out_shape[-2], out_shape[-1]
+def _launch_relay(x: torch.Tensor, root: int):
+    """Enqueue the bcast relay on the card; x (P, C, S): the ranks' inputs.
+    Returns (out, flags); the caller checks the flags' error word."""
+    P, C, S = x.shape
+    what = "bcast_relay_kernel"
     _pr._check_cuda(x, what)
     _check_root(root, P, what)
     lib = cuda_build.load()
     size = _itemsize(x.dtype)
     dev = x.device
-    B = _pr._grid(lib, kind, 1, size, 0, P, 1, S, dev)
-    out = torch.empty(out_shape, dtype=x.dtype, device=dev)
-    stage = None
-    if kind == _ALLTOALL:
-        stage = torch.empty((P, 2, C, S), dtype=x.dtype, device=dev)
+    B = _pr._grid(lib, _BCAST, 1, size, 0, P, 1, S, dev)
+    out = torch.empty_like(x)
     flags = torch.zeros(P * B + 1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.accl_ring_relay(
-            kind, size, cuda_build.pointer_table(x),
-            cuda_build.pointer_table(out),
-            cuda_build.pointer_table(stage) if stage is not None else None,
+            size, cuda_build.pointer_table(x), cuda_build.pointer_table(out),
             flags.data_ptr(), P, C, S, B, root, _pr.SPIN_TIMEOUT_S,
             cuda_build.stream_handle(dev))
     cuda_build.check(lib, rc, what)
@@ -210,8 +205,7 @@ def chunked_bcast(x: torch.Tensor, root: int, errors=None) -> torch.Tensor:
         return plain_chunked_bcast(x, root)
     if x.shape[0] == 1:
         return x.clone()
-    out, flags = _launch_relay(_BCAST, x, root, x.shape,
-                               "bcast_relay_kernel")
+    out, flags = _launch_relay(x, root)
     chunked_bcast.launches += 1
     _pr._note_error_word(flags, "bcast_relay_kernel", errors)
     return out
@@ -312,7 +306,7 @@ chunked_gather.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# kernel 10: the phased ring-rotation all-to-all (_chunked_alltoall_kernel)
+# kernel 10: the one-hop all-to-all (_chunked_alltoall_kernel)
 # ---------------------------------------------------------------------------
 
 def plain_chunked_alltoall(x: torch.Tensor) -> torch.Tensor:
@@ -324,16 +318,27 @@ def plain_chunked_alltoall(x: torch.Tensor) -> torch.Tensor:
 
 def chunked_alltoall(x: torch.Tensor, errors=None) -> torch.Tensor:
     """Kernel 10 (replaces ``pallas_chunked.py:_chunked_alltoall_kernel``).
-    Same contract as :func:`plain_chunked_alltoall`; ``errors`` as in
-    :mod:`.pallas_ring`."""
+    Same contract as :func:`plain_chunked_alltoall`, into a new tensor: an
+    all-to-all in place is a transposition, and with a receive buffer that
+    aliases the send buffer it would read blocks it has already written.
+    No error word, as for :func:`chunked_scatter`."""
     if x.device.type != "cuda":
         return plain_chunked_alltoall(x)
-    if x.shape[0] == 1:
+    P, _, C, S = x.shape
+    if P == 1:
         return x.clone()
-    out, flags = _launch_relay(_ALLTOALL, x, 0, x.shape,
-                               "alltoall_phase_kernel")
+    what = "alltoall_copy_kernel"
+    _pr._check_cuda(x, what)
+    lib = cuda_build.load()
+    dev = x.device
+    out = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        rc = lib.accl_ring_alltoall(
+            _itemsize(x.dtype), cuda_build.pointer_table(x),
+            cuda_build.pointer_table(out), P, C * S,
+            cuda_build.stream_handle(dev))
+    cuda_build.check(lib, rc, what)
     chunked_alltoall.launches += 1
-    _pr._note_error_word(flags, "alltoall_phase_kernel", errors)
     return out
 
 
@@ -537,8 +542,12 @@ def chunked_gather_body(x, dest, *, P: int, root: int, dtype,
     row = dest[root]
     if wire is None and n == per and row.dtype == kdt and \
             row.is_contiguous():
-        chunked_gather(padded, root, errors, out=row.view(P, C, seg_elems))
+        # the root's own block goes in first: x may be a view of dest (a
+        # send buffer that is the receive buffer), where slot 0 of the
+        # root's row is x[root] and the kernel overwrites it; it never
+        # writes slot root, which for root > 0 does not overlap x[root]
         row[root * n:(root + 1) * n] = x[root]
+        chunked_gather(padded, root, errors, out=row.view(P, C, seg_elems))
         return dest
     got = chunked_gather(padded, root, errors)
     flat = _unwire_to(got.reshape(P, per)[:, :n], dtype, wire, x.dtype)
@@ -579,9 +588,9 @@ def chunked_reduce_body(x, *, P: int, root: int, func: reduceFunction,
 def chunked_alltoall_body(x, *, P: int, dtype, segment_bytes: int,
                           wire=None, errors=None):
     """(P, P*n) -> (P, P*n): chunk d of rank r's row goes to rank d; slot s
-    of rank r's result holds rank s's chunk for r. ``wire`` runs every hop
-    in the wire dtype (pure transport); a rank's own chunk never rides the
-    wire and stays exact."""
+    of rank r's result holds rank s's chunk for r. ``wire`` carries every
+    chunk in the wire dtype (pure transport); a rank's own chunk never
+    rides the wire and stays exact."""
     n = x.shape[-1] // P
     if P == 1:
         return x.clone()
@@ -604,8 +613,8 @@ def chunked_alltoall_body(x, *, P: int, dtype, segment_bytes: int,
 
 def build_chunked_ring_alltoall(comm: Communicator, dt: dataType,
                                 segment_bytes=None, arith=None) -> Callable:
-    """(world, world*n) -> (world, world*n): phased ring-rotation
-    all-to-all. A compressing ``arith`` compresses every hop (pure
+    """(world, world*n) -> (world, world*n): one-hop all-to-all. A
+    compressing ``arith`` carries every chunk in the wire dtype (pure
     transport)."""
     P = comm.world_size
     dtype = constants.to_torch_dtype(dt)

@@ -6,30 +6,34 @@ launch counter and a wrapper that runs the plain version on CPU tensors
 and launches the CUDA kernel on CUDA tensors (or raises; there is no
 fallback):
 
-* :func:`ring_reduce_scatter` replaces ``pallas_ring.py:_rs_kernel``. Rank
-  r seeds the ring with its chunk r; at hop s it receives its upstream
-  rank's partial, folds it with its own chunk (r-s-1)%P (received ⊕ local)
-  and forwards the result; after P-1 hops it owns chunk (r+1)%P folded in
-  ring order from that chunk's own rank. ``wire=(dtype, scale)`` stages
-  every forwarded partial compressed and decompresses it before the
-  full-precision fold. Kernel: ``csrc/ring.cu:ring_rs_kernel``.
+* :func:`ring_reduce_scatter` replaces ``pallas_ring.py:_rs_kernel``. On
+  the TPU rank r seeds the ring with its chunk r; at hop s it receives its
+  upstream rank's partial, folds it with its own chunk (r-s-1)%P (received
+  ⊕ local) and forwards the result; after P-1 hops it owns chunk (r+1)%P
+  folded in ring order from that chunk's own rank. ``wire=(dtype, scale)``
+  stages every forwarded partial compressed and decompresses it before the
+  full-precision fold. Kernel: ``csrc/ring.cu:rs_fold_kernel``, which
+  computes the same chains in one pass: every output element reads its P
+  inputs once and folds them in that hop order, wire roundings included,
+  so it equals the ring bit for bit with no hop, staging or flag.
 * :func:`ring_allgather` replaces ``pallas_ring.py:_ag_kernel``: rank r's
   block lands in slot r of every rank after P-1 right-forward hops.
   Kernel: ``csrc/ring.cu:ring_ag_kernel``.
 
-A launch is asynchronous. Its error word (set when a flag spin timed out)
-is checked where the caller completes the work: a wrapper given an
-``errors`` list appends the word and returns at once, and the
+A launch is asynchronous. The all-gather's error word (set when a flag spin
+timed out) is checked where the caller completes the work: a wrapper given
+an ``errors`` list appends the word and returns at once, and the
 :class:`..request.Request` of the host call reads every word of the call
 after its one device sync; a wrapper given no list checks the word itself,
-which waits for the launch.
+which waits for the launch. The fold waits on nothing and has no error
+word: it takes ``errors`` and leaves the list as it is.
 
 Both kernels are bound by device memory bandwidth (3.35 TB/s on an H100
 SXM): they stream bytes and do at most one add per element read. The
-design keeps it simple: one launch per ring phase, a group of CTAs per
-rank, two global-memory staging slots per rank in place of the TPU's
-two-deep VMEM receive slot, and release/acquire flag words in place of DMA
-semaphores and capacity credits (see ``csrc/ring.cu``).
+all-gather keeps the TPU's schedule: one launch per ring phase, a group of
+CTAs per rank, release/acquire flag words in place of DMA semaphores (see
+``csrc/ring.cu``). The fold is an ordinary launch over (16-byte vectors of
+a chunk, rank) with no flags: on one HBM a ring only multiplies traffic.
 
 The builders keep the JAX package's host-side policy: padding each chunk
 to whole (sublane x 128) tiles, the automatic switch to the segmented
@@ -178,32 +182,39 @@ def _note_error_word(flags: torch.Tensor, what: str, errors) -> None:
                         f"{what}: a ring hop waited over {SPIN_TIMEOUT_S} s")
 
 
-def _launch_rs(chunked: int, x: torch.Tensor, func: reduceFunction, wire,
-               bidirectional: bool):
-    """Enqueue one reduce-scatter ring phase on the card. x: (P, P, C, S)
-    -> (out (P, C, S), flags); the caller checks the flags' error word."""
-    P, _, C, S = x.shape
-    what = "chunked_rs_kernel" if chunked else "ring_rs_kernel"
-    _check_cuda(x, what)
-    lib = cuda_build.load()
+def _rs_codes(x: torch.Tensor, wire, what: str):
+    """(dtype code, wire dtype, wire code, int8 scale) of a reduce-scatter
+    kernel launch; the scale is 1 where the wire has none."""
     wdt = wire[0] if wire is not None else x.dtype
     if wire is not None and (wdt == torch.int8) != (wire[1] is not None):
         raise ACCLError(errorCode.KERNEL_NOT_REGISTERED,
                         f"{what}: a scale goes with the int8 wire only, "
                         f"got {wire}")
-    code, wcode = _dt_code(x.dtype), _dt_code(wdt)
     scale = float(wire[1]) if wire is not None and wire[1] is not None \
         else 1.0
-    nchan = min(2, C) if chunked else 1
+    return _dt_code(x.dtype), wdt, _dt_code(wdt), scale
+
+
+def _launch_rs(x: torch.Tensor, func: reduceFunction, wire,
+               bidirectional: bool):
+    """Enqueue one segmented reduce-scatter ring phase on the card. x: (P,
+    P, C, S) -> (out (P, C, S), flags); the caller checks the flags' error
+    word."""
+    P, _, C, S = x.shape
+    what = "chunked_rs_kernel"
+    _check_cuda(x, what)
+    lib = cuda_build.load()
+    code, wdt, wcode, scale = _rs_codes(x, wire, what)
+    nchan = min(2, C)
     dev = x.device
-    B = _grid(lib, 0, chunked, code, wcode, P, nchan, S, dev)
+    B = _grid(lib, 0, 1, code, wcode, P, nchan, S, dev)
     out = torch.empty((P, C, S), dtype=x.dtype, device=dev)
     stage = torch.empty((P, 2, 2, S), dtype=wdt, device=dev)
     flags = torch.zeros(2 * P * 2 * B * 2 + 1, dtype=torch.int32,
                         device=dev)
     with torch.cuda.device(dev):
         rc = lib.accl_ring_rs(
-            chunked, code, wcode, cuda_build.pointer_table(x),
+            code, wcode, cuda_build.pointer_table(x),
             cuda_build.pointer_table(out), cuda_build.pointer_table(stage),
             flags.data_ptr(), P, C, S, B, nchan, int(bidirectional),
             int(func), scale, SPIN_TIMEOUT_S,
@@ -277,18 +288,29 @@ def plain_ring_reduce_scatter(chunks: torch.Tensor, func: reduceFunction,
 
 def ring_reduce_scatter(chunks: torch.Tensor, func: reduceFunction,
                         wire=None, errors=None) -> torch.Tensor:
-    """Kernel 4 (replaces ``pallas_ring.py:_rs_kernel``). Same contract as
-    :func:`plain_ring_reduce_scatter`; ``errors`` as in the module
-    docstring."""
+    """Kernel 4 (replaces ``pallas_ring.py:_rs_kernel``;
+    ``csrc/ring.cu:rs_fold_kernel``). Same contract as
+    :func:`plain_ring_reduce_scatter`. The kernel waits on nothing, so it
+    has no error word: ``errors`` is taken and left as it is."""
     if chunks.device.type != "cuda":
         return plain_ring_reduce_scatter(chunks, func, wire)
     P, _, L = chunks.shape
     if P == 1:
         return chunks[:, 0].clone()
-    out, flags = _launch_rs(0, chunks.view(P, P, 1, L), func, wire, False)
+    what = "rs_fold_kernel"
+    _check_cuda(chunks, what)
+    lib = cuda_build.load()
+    code, _, wcode, scale = _rs_codes(chunks, wire, what)
+    dev = chunks.device
+    out = torch.empty((P, L), dtype=chunks.dtype, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.accl_ring_rs_fold(
+            code, wcode, cuda_build.pointer_table(chunks),
+            cuda_build.pointer_table(out), P, L, int(func), scale,
+            cuda_build.stream_handle(dev))
+    cuda_build.check(lib, rc, what)
     ring_reduce_scatter.launches += 1
-    _note_error_word(flags, "ring_rs_kernel", errors)
-    return out.view(P, L)
+    return out
 
 
 ring_reduce_scatter.launches = 0

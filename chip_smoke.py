@@ -9,9 +9,12 @@ any failure exits non-zero and nothing is caught and skipped:
    and ``pipeline.cu``, one ``nvcc`` each, in parallel) and print the build
    time, the card and its power limit;
 2. hold every kernel against its plain PyTorch version on the card, bit
-   for bit (``torch.equal``, or the raw bits where NaN can occur): the four
-   ring kernels (P in {2, 8}, a ragged length, SUM and MAX, f32 / i32 /
-   bf16, a bf16 and an int8 wire, both ring directions, MAX on +-0 / NaN),
+   for bit (``torch.equal``, or the raw bits where NaN can occur): the
+   reduce-scatter fold (P in {2, 3, 8}, lengths 1000, 1024 and 777, SUM and
+   MAX, f32 / i32 / bf16, the bf16, f16 and int8 wires, MAX on +-0 / NaN)
+   and the three ring kernels (P in {2, 8}, a ragged length, SUM and MAX,
+   f32 / i32 / bf16, a bf16 and an int8 wire, both ring directions, MAX on
+   +-0 / NaN),
    the three plugin kernels (combine in f32 / bf16 / f16 / i32, SUM and
    MAX, with and without donate; the four casts; stochastic rounding with
    three seeds and per-row seeds; NaN, +-0, inf, subnormal and overflow
@@ -20,8 +23,8 @@ any failure exits non-zero and nothing is caught and skipped:
    with NaN and +-0), the one-hop scatter and gather (the same cases at
    lengths 1000, 1024 and 777, so that blocks take the 16-byte path, its
    element tail and the element path, and 8-byte elements), the
-   all-to-all (P in {2, 3, 8}, one and three segments, 1-, 2- and 4-byte
-   elements with NaN and +-0, by bits) and the fused MoE dispatch and combine (worlds 2, 3 and 8,
+   all-to-all (P in {2, 3, 8}, one and three segments of lengths 1000,
+   1024 and 777, 1-, 2-, 4- and 8-byte elements with NaN and +-0, by bits) and the fused MoE dispatch and combine (worlds 2, 3 and 8,
    bidirectional on and off, an aligned and an uneven shape, f32 and bf16
    wires: integer-valued operands bit-equal, random ones within the f32
    summation bound, with TF32 off for the plain versions) with their
@@ -61,8 +64,8 @@ any failure exits non-zero and nothing is caught and skipped:
    a. ``ACCL(world=8)`` runs AUTO all-reduce, f32 SUM, from 4 B to 1 GiB
       per rank in powers of 4 with the payload generated and kept on the
       card; every size is checked against a float64 fold, and the launch
-      counters must show the VMEM-range ring kernels for 1-4 MiB and the
-      segmented ones above;
+      counters must show the VMEM-range pair (the reduce-scatter fold and
+      the all-gather ring) for 1-4 MiB and the segmented rings above;
    b. the families and primitives of slice 2 at world 8: ``combine`` SUM
       and MAX and ``copy`` at 256 MiB per rank, AUTO reduce-scatter at 4
       and 6 MiB (the RING window), explicit RING / TREE / HIERARCHICAL
@@ -85,11 +88,12 @@ any failure exits non-zero and nothing is caught and skipped:
       receive row must keep its pre-filled pattern; ``barrier`` closes it;
    d. ``ACCL.alltoall`` at world 8: AUTO over per-rank send buffers of 4 B
       to 1 GiB in powers of 4 (at least one f32 element per destination),
-      where the counters must show ``alltoall_phase_kernel`` exactly where
+      where the counters must show ``alltoall_copy_kernel`` exactly where
       AUTO resolves PALLAS (from 8 MiB per destination); explicit XLA, FLAT
       and PALLAS at 64 MiB per rank, and PALLAS with a bf16 wire; every
       result exact (the bf16 wire: the nearest bf16, a rank's own chunk
-      exact);
+      exact); every call prints the peak memory it allocated beyond its
+      buffers;
    e. the MoE forward at the full width of Switch-Base-8 (d_model 768,
       d_ff 3072, 8 experts, top-1, ReLU), world 8, 2048 tokens per rank,
       capacity 320: the fused path (both MoE kernels must launch) and the
@@ -233,22 +237,57 @@ def make(shape, dtype, gen):
 
 
 def check_kernels(gen) -> None:
+    """The four reduce-scatter and all-gather kernels against their plain
+    versions, by bits. rs_fold_kernel at P 2, 3 and 8 and L 1000, 1024 and
+    777 (f32 chunks of 1000 and 1024 elements take the 16-byte path, 1000
+    with an element tail in bf16; 777 puts chunks at odd offsets, on the
+    element path): f32, int32 and bf16 with SUM and MAX, f32 under the
+    bf16, f16 and int8 wires, and MAX on +-0 / NaN; the ring kernels at P
+    2 and 8 on a ragged length."""
     import torch
     from accl_tpu_torch.constants import reduceFunction as F
     from accl_tpu_torch.parallel import pallas_chunked as pc
     from accl_tpu_torch.parallel import pallas_ring as pr
 
     dts = (torch.float32, torch.int32, torch.bfloat16)
-    wires = ((torch.bfloat16, None), (torch.int8, 10.0))
-    L, C, S = 1000, 3, 1000          # ragged: no multiple of 128
+    wires = ((torch.bfloat16, None), (torch.float16, None),
+             (torch.int8, 10.0))
+    C, S = 3, 1000                   # ragged: no multiple of 128
     n = 0
+    for P in (2, 3, 8):
+        for L in (1000, 1024, 777):
+            for dt in dts:
+                for func in (F.SUM, F.MAX):
+                    x = make((P, P, L), dt, gen)
+                    if not torch.equal(pr.ring_reduce_scatter(x, func),
+                                       pr.plain_ring_reduce_scatter(x, func)):
+                        fail(f"rs_fold_kernel != plain (P={P} L={L} {dt} "
+                             f"{func.name})")
+                    n += 1
+            for wire in wires:
+                x = make((P, P, L), torch.float32, gen) * 3
+                if not torch.equal(pr.ring_reduce_scatter(x, F.SUM, wire),
+                                   pr.plain_ring_reduce_scatter(x, F.SUM,
+                                                                wire)):
+                    fail(f"rs_fold_kernel != plain (P={P} L={L} "
+                         f"wire={wire})")
+                n += 1
+            # MAX on +-0 / NaN: IEEE maximum (+0 > -0, NaN propagates; of
+            # two NaNs the first if its sign is set), by bits
+            for dt in (torch.float32, torch.bfloat16):
+                x = torch.where(torch.rand((P, P, L), generator=gen,
+                                           device="cuda") < 0.5, 0.0, -0.0)
+                x[0, :, ::97] = float("nan")
+                x[P - 1, :, 5::89] = -float("nan")
+                x = x.to(dt)
+                if not same_bits(pr.ring_reduce_scatter(x, F.MAX),
+                                 pr.plain_ring_reduce_scatter(x, F.MAX)):
+                    fail(f"rs_fold_kernel != plain on +-0/NaN MAX (P={P} "
+                         f"L={L} {dt})")
+                n += 1
     for P in (2, 8):
         for dt in dts:
             for func in (F.SUM, F.MAX):
-                x = make((P, P, L), dt, gen)
-                if not torch.equal(pr.ring_reduce_scatter(x, func),
-                                   pr.plain_ring_reduce_scatter(x, func)):
-                    fail(f"ring_rs_kernel != plain (P={P} {dt} {func.name})")
                 for bidir in (False, True):
                     x = make((P, P, C, S), dt, gen)
                     got = pc.chunked_reduce_scatter(x, func, None, bidir)
@@ -257,8 +296,8 @@ def check_kernels(gen) -> None:
                     if not torch.equal(got, want):
                         fail(f"chunked_rs_kernel != plain (P={P} {dt} "
                              f"{func.name} bidir={bidir})")
-                n += 3
-            b = make((P, L), dt, gen)
+                n += 2
+            b = make((P, S), dt, gen)
             if not torch.equal(pr.ring_allgather(b),
                                pr.plain_ring_allgather(b)):
                 fail(f"ring_ag_kernel != plain (P={P} {dt})")
@@ -269,35 +308,26 @@ def check_kernels(gen) -> None:
                     fail(f"chunked_ag_kernel != plain (P={P} {dt} "
                          f"bidir={bidir})")
             n += 3
-        for wire in wires:
-            x = make((P, P, L), torch.float32, gen) * 3
-            if not torch.equal(pr.ring_reduce_scatter(x, F.SUM, wire),
-                               pr.plain_ring_reduce_scatter(x, F.SUM, wire)):
-                fail(f"ring_rs_kernel != plain (P={P} wire={wire})")
+        for wire in wires[0::2]:
             x = make((P, P, C, S), torch.float32, gen) * 3
             if not torch.equal(
                     pc.chunked_reduce_scatter(x, F.SUM, wire, True),
                     pc.plain_chunked_reduce_scatter(x, F.SUM, wire, True)):
                 fail(f"chunked_rs_kernel != plain (P={P} wire={wire})")
-            n += 2
-    # MAX on +-0 / NaN: IEEE maximum (+0 > -0, NaN propagates), by bits
+            n += 1
     for dt in (torch.float32, torch.bfloat16):
-        x = torch.where(torch.rand((8, 8, L), generator=gen, device="cuda")
-                        < 0.5, 0.0, -0.0)
-        x[0, 3, ::97] = float("nan")
+        x = torch.where(torch.rand((8, 8, 2, S), generator=gen,
+                                   device="cuda") < 0.5, 0.0, -0.0)
+        x[0, 3, :, ::97] = float("nan")
         x = x.to(dt)
-        if not same_bits(pr.ring_reduce_scatter(x, F.MAX),
-                         pr.plain_ring_reduce_scatter(x, F.MAX)):
-            fail(f"ring_rs_kernel != plain on +-0/NaN MAX ({dt})")
-        xc = x.view(8, 8, 1, L).expand(8, 8, 2, L).contiguous()
         for bidir in (False, True):
-            if not same_bits(pc.chunked_reduce_scatter(xc, F.MAX, None,
+            if not same_bits(pc.chunked_reduce_scatter(x, F.MAX, None,
                                                        bidir),
-                             pc.plain_chunked_reduce_scatter(xc, F.MAX, None,
+                             pc.plain_chunked_reduce_scatter(x, F.MAX, None,
                                                              bidir)):
                 fail(f"chunked_rs_kernel != plain on +-0/NaN MAX ({dt} "
                      f"bidir={bidir})")
-        n += 3
+            n += 1
     torch.cuda.synchronize()
     log(f"phase 2: {n} ring kernel-vs-plain cases bit-equal")
 
@@ -437,26 +467,29 @@ def check_relay_kernels(gen) -> None:
 
 
 def check_alltoall_kernels(gen) -> None:
-    """alltoall_phase_kernel against its plain version, by bits: P in {2,
-    3, 8}, one and three segments of a ragged length, int8 / bf16 / f32
-    (random data with NaN, -NaN, +-0, inf and subnormals). Each rank's own
-    slot, which the kernel leaves unwritten, is not compared."""
+    """alltoall_copy_kernel against its plain version, by bits: P in {2, 3,
+    8}, one and three segments of S 1000, 1024 and 777 (chunks on the
+    16-byte path, with and without an element tail, and at odd offsets on
+    the element path), 1-, 2-, 4- and 8-byte elements (random data with
+    NaN, -NaN, +-0, inf and subnormals). Each rank's own slot, which the
+    kernel leaves unwritten, is not compared."""
     import torch
     from accl_tpu_torch.parallel import pallas_chunked as pc
 
     n_cases = 0
     for P in (2, 3, 8):
         off = ~torch.eye(P, dtype=torch.bool, device="cuda")
-        for dt in (torch.int8, torch.bfloat16, torch.float32):
+        for dt in (torch.int8, torch.bfloat16, torch.float32, torch.float64):
             for C in (1, 3):
-                x = specials(P * P * C * 1000, gen).view(P, P, C, 1000)
-                x = (x.nan_to_num(0.0) * 50).to(dt) if dt == torch.int8 \
-                    else x.to(dt)
-                if not same_bits(pc.chunked_alltoall(x)[off],
-                                 pc.plain_chunked_alltoall(x)[off]):
-                    fail(f"alltoall_phase_kernel != plain (P={P} {dt} "
-                         f"C={C})")
-                n_cases += 1
+                for S in (1000, 1024, 777):
+                    x = specials(P * P * C * S, gen).view(P, P, C, S)
+                    x = (x.nan_to_num(0.0) * 50).to(dt) if dt == torch.int8 \
+                        else x.to(dt)
+                    if not same_bits(pc.chunked_alltoall(x)[off],
+                                     pc.plain_chunked_alltoall(x)[off]):
+                        fail(f"alltoall_copy_kernel != plain (P={P} {dt} "
+                             f"C={C} S={S})")
+                    n_cases += 1
     torch.cuda.synchronize()
     log(f"phase 2: {n_cases} alltoall kernel-vs-plain cases bit-equal")
 
@@ -766,7 +799,11 @@ def check_cmatmul_kernels(gen) -> None:
 def measure_kernels(gen, big_ok: bool) -> dict:
     """Each kernel at its main-path shape (f32 SUM, P=8): the 4 MiB
     all-reduce for the VMEM-range pair, the 1 GiB one (or the largest that
-    fits) for the segmented pair. Returns per-kernel measurements."""
+    fits) for the segmented pair. Each wrapper runs with an ``errors``
+    list, so it does not wait for its launch to read an error word, and is
+    timed in turns with its plain version and library call, the host's
+    launch work hidden (``time_in_turns``). Returns per-kernel
+    measurements."""
     import torch
     from accl_tpu_torch.constants import reduceFunction as F
     from accl_tpu_torch.parallel import pallas_chunked as pc
@@ -776,30 +813,30 @@ def measure_kernels(gen, big_ok: bool) -> dict:
     res = {}
 
     def ring_bytes(kind, x):
-        """The ring schedule's own traffic (csrc/ring.cu) for f32 at P=8:
-        per element of a chunk, the reduce-scatter moves (P+1) + (2P-2)
-        words (seed, P-1 hops of upstream + local reads and a write), the
-        all-gather 2P (seed and P-1 block copies)."""
-        elems = x.numel() // P if kind == "rs" else x.numel()
-        words = (P + 1) + (2 * P - 2) if kind == "rs" else 2 * P
-        return elems * words * x.element_size()
+        """The schedule's own traffic (csrc/ring.cu) for f32 at P=8: per
+        element of a chunk, a reduce-scatter ring moves (P+1) + (2P-2)
+        words (seed, P-1 hops of upstream + local reads and a write), an
+        all-gather ring 2P (seed and P-1 block copies); the one-pass fold
+        moves the function's own P + 1 (P reads and a write)."""
+        elems = x.numel() // P if kind != "ag" else x.numel()
+        words = {"rs": (P + 1) + (2 * P - 2), "ag": 2 * P, "fold": P + 1}
+        return elems * words[kind] * x.element_size()
 
-    def record(name, got, want, x, out, fn_kernel, fn_plain, fn_lib, iters):
+    def record(name, got, want, x, out, fn_kernel, fn_plain, fn_lib, iters,
+               kind):
         err = (got.double() - want.double()).abs().max().item()
         if not torch.equal(got, want):
             fail(f"{name} != plain at the main-path shape {tuple(x.shape)}")
         nbytes = x.numel() * x.element_size() + out.numel() * \
             out.element_size()
+        ms = time_in_turns([fn_kernel, fn_plain, fn_lib], iters)
         res[name] = {
             "shape": list(x.shape),
             "max_abs_err": err,
-            "ms": time_ms(fn_kernel, iters),
-            "plain_ms": time_ms(fn_plain, iters),
-            "library_ms": time_ms(fn_lib, iters),
+            "ms": ms[0], "plain_ms": ms[1], "library_ms": ms[2],
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes",
-            "ring_bound_ms": ring_bytes("rs" if "_rs_" in name else "ag",
-                                        x) / HBM_BYTES_PER_S * 1e3,
+            "ring_bound_ms": ring_bytes(kind, x) / HBM_BYTES_PER_S * 1e3,
         }
         log(f"  {name} {tuple(x.shape)}: kernel {res[name]['ms']!r} ms, "
             f"plain {res[name]['plain_ms']!r} ms, library "
@@ -811,17 +848,16 @@ def measure_kernels(gen, big_ok: bool) -> dict:
     L = (4 * MIB // 4) // P
     x = make((P, P, L), torch.float32, gen)
     got = pr.ring_reduce_scatter(x, F.SUM)
-    record("ring_rs_kernel", got, pr.plain_ring_reduce_scatter(x, F.SUM), x,
-           got, lambda: pr._launch_rs(0, x.view(P, P, 1, L), F.SUM, None,
-                                      False),
+    record("rs_fold_kernel", got, pr.plain_ring_reduce_scatter(x, F.SUM), x,
+           got, lambda: pr.ring_reduce_scatter(x, F.SUM, None, []),
            lambda: pr.plain_ring_reduce_scatter(x, F.SUM),
-           lambda: x.view(P, P, -1).sum(0), 50)
+           lambda: x.view(P, P, -1).sum(0), 50, "fold")
     b = got
     got = pr.ring_allgather(b)
     record("ring_ag_kernel", got, pr.plain_ring_allgather(b), b, got,
-           lambda: pr._launch_ag(0, b.view(P, 1, L), False),
+           lambda: pr.ring_allgather(b, []),
            lambda: pr.plain_ring_allgather(b),
-           lambda: b.repeat(P, 1, 1), 50)
+           lambda: b.repeat(P, 1, 1), 50, "ag")
     del x, b, got
 
     # segmented pair at the largest main-path all-reduce that fits
@@ -832,18 +868,18 @@ def measure_kernels(gen, big_ok: bool) -> dict:
     got = pc.chunked_reduce_scatter(x, F.SUM, None, True)
     want = pc.plain_chunked_reduce_scatter(x, F.SUM, None, True)
     record("chunked_rs_kernel", got, want, x, got,
-           lambda: pr._launch_rs(1, x, F.SUM, None, True),
+           lambda: pc.chunked_reduce_scatter(x, F.SUM, None, True, []),
            lambda: pc.plain_chunked_reduce_scatter(x, F.SUM, None, True),
-           lambda: x.view(P, P, -1).sum(0), 3)
+           lambda: x.view(P, P, -1).sum(0), 3, "rs")
     del want, x
     torch.cuda.empty_cache()
     b = got
     got = pc.chunked_allgather(b, True)
     want = pc.plain_chunked_allgather(b, True)
     record("chunked_ag_kernel", got, want, b, got,
-           lambda: pr._launch_ag(1, b, True),
+           lambda: pc.chunked_allgather(b, True, []),
            lambda: pc.plain_chunked_allgather(b, True),
-           lambda: b.repeat(P, 1, 1, 1), 3)
+           lambda: b.repeat(P, 1, 1, 1), 3, "ag")
     del b, got, want
     torch.cuda.empty_cache()
     return res
@@ -979,8 +1015,7 @@ def measure_relay_kernels(gen, big_ok: bool) -> dict:
     n = x[0].numel()
     record("bcast_relay_kernel", pc.chunked_bcast(x, root),
            pc.plain_chunked_bcast(x, root), x,
-           lambda: pc._launch_relay(pc._BCAST, x, root, x.shape,
-                                    "bcast_relay_kernel"),
+           lambda: pc._launch_relay(x, root),
            lambda: pc.plain_chunked_bcast(x, root),
            lambda: x[root].view(-1).expand(P, n).clone(),
            P * n, 2 * (P - 1) * n, 3)
@@ -1015,12 +1050,13 @@ def measure_relay_kernels(gen, big_ok: bool) -> dict:
 
 
 def measure_alltoall_kernel(gen, big_ok: bool) -> dict:
-    """alltoall_phase_kernel at the main path's largest call, the 1 GiB per
+    """alltoall_copy_kernel at the main path's largest call, the 1 GiB per
     rank all-to-all (f32, P=8, 1 MiB segments: (8, 8, 128, 262144)), a
-    quarter of it when the card has less than 60 GiB. Bounds, n one chunk's
+    quarter of it when the card has less than 60 GiB. Bound, n one chunk's
     elements: the function reads and writes the P (P-1) n words that leave
-    their rank, 2 P (P-1) n words in all; the ring schedule moves P n P(P-1)/2
-    words hop by hop, each read and written (4x the function's at P = 8)."""
+    their rank, 2 P (P-1) n words in all; the one-hop kernel moves just
+    those, so its ring bound is its bound. Timed in turns with the plain
+    version and the library call (``time_in_turns``)."""
     import torch
     from accl_tpu_torch.parallel import pallas_chunked as pc
 
@@ -1037,27 +1073,25 @@ def measure_alltoall_kernel(gen, big_ok: bool) -> dict:
     for r in range(P):                    # row by row: 1 GiB rows
         keep = off[r]
         if not same_bits(got[r][keep], want[r][keep]):
-            fail(f"alltoall_phase_kernel != plain at the main-path shape "
+            fail(f"alltoall_copy_kernel != plain at the main-path shape "
                  f"{tuple(x.shape)} (row {r})")
         err = max(err, (got[r][keep] - want[r][keep]).abs().max().item())
     del got, want
     torch.cuda.empty_cache()
     words = 2 * P * (P - 1) * n
-    ring_words = 2 * P * n * P * (P - 1) // 2
-    res = {"alltoall_phase_kernel": {
+    ms = time_in_turns([lambda: pc.chunked_alltoall(x, []),
+                        lambda: pc.plain_chunked_alltoall(x),
+                        lambda: x.view(P, P, n).transpose(0, 1).contiguous()],
+                       5)
+    res = {"alltoall_copy_kernel": {
         "shape": list(x.shape), "max_abs_err": err,
-        "ms": time_ms(lambda: pc._launch_relay(
-            pc._ALLTOALL, x, 0, x.shape, "alltoall_phase_kernel"), 3),
-        "plain_ms": time_ms(lambda: pc.plain_chunked_alltoall(x), 3),
-        "library_ms": time_ms(
-            lambda: x.view(P, P, n).transpose(0, 1).contiguous(), 3),
+        "ms": ms[0], "plain_ms": ms[1], "library_ms": ms[2],
         "bound_ms": words * 4 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "ring_bound_ms": ring_words * 4 / HBM_BYTES_PER_S * 1e3}}
-    r = res["alltoall_phase_kernel"]
-    log(f"  alltoall_phase_kernel {tuple(x.shape)}: kernel {r['ms']!r} ms, "
+        "ring_bound_ms": words * 4 / HBM_BYTES_PER_S * 1e3}}
+    r = res["alltoall_copy_kernel"]
+    log(f"  alltoall_copy_kernel {tuple(x.shape)}: kernel {r['ms']!r} ms, "
         f"plain {r['plain_ms']!r} ms, library {r['library_ms']!r} ms, bound "
-        f"{r['bound_ms']!r} ms, ring bound {r['ring_bound_ms']!r} ms, "
-        f"max_abs_err {err!r}")
+        f"{r['bound_ms']!r} ms, max_abs_err {err!r}")
     del x
     torch.cuda.empty_cache()
     return res
@@ -2178,7 +2212,7 @@ def wrappers() -> dict:
     from accl_tpu_torch.ops import reduce_ops as ro
     from accl_tpu_torch.parallel import pallas_chunked as pc
     from accl_tpu_torch.parallel import pallas_ring as pr
-    return {"ring_rs_kernel": pr.ring_reduce_scatter,
+    return {"rs_fold_kernel": pr.ring_reduce_scatter,
             "ring_ag_kernel": pr.ring_allgather,
             "chunked_rs_kernel": pc.chunked_reduce_scatter,
             "chunked_ag_kernel": pc.chunked_allgather,
@@ -2188,7 +2222,7 @@ def wrappers() -> dict:
             "bcast_relay_kernel": pc.chunked_bcast,
             "scatter_copy_kernel": pc.chunked_scatter,
             "gather_copy_kernel": pc.chunked_gather,
-            "alltoall_phase_kernel": pc.chunked_alltoall,
+            "alltoall_copy_kernel": pc.chunked_alltoall,
             "a2a_mm_kernel": ca.a2a_mm,
             "mm_a2a_kernel": ca.mm_a2a,
             "agmm_kernel": cm.agmm,
@@ -2275,10 +2309,10 @@ def main_path(gen) -> dict:
         algo = algorithms.select(operation.allreduce, nbytes, acc.comms[0],
                                  acc.config, count=count).value
         err = check_result(send.data, recv.data, P)
-        ring = fired["ring_rs_kernel"] + fired["ring_ag_kernel"]
+        ring = fired["rs_fold_kernel"] + fired["ring_ag_kernel"]
         seg = fired["chunked_rs_kernel"] + fired["chunked_ag_kernel"]
         if MIB <= nbytes <= 4 * MIB:
-            ok = fired["ring_rs_kernel"] > 0 and fired["ring_ag_kernel"] > 0 \
+            ok = fired["rs_fold_kernel"] > 0 and fired["ring_ag_kernel"] > 0 \
                 and seg == 0
         elif nbytes > 4 * MIB:
             ok = fired["chunked_rs_kernel"] > 0 and \
@@ -2648,7 +2682,11 @@ def alltoall_paths(gen, big_ok: bool) -> dict:
         if wire:
             kw["compress_dtype"] = dataType.bfloat16
         c0 = counts()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         p50 = p50_call(lambda: acc.alltoall(s, r, count, **kw), iters)
+        extra = torch.cuda.max_memory_allocated() - held
         c = counts()
         fired = {k: c[k] - c0[k] for k in c if c[k] - c0[k]}
         resolved = algorithms.select(operation.alltoall, count * 4,
@@ -2669,7 +2707,8 @@ def alltoall_paths(gen, big_ok: bool) -> dict:
         log(f"alltoall {count * P * 4:>10} B/rank"
             + (" wire bf16" if wire else "")
             + f": p50 {p50 * 1e6!r} us, algorithm {resolved}, launches "
-            f"{json.dumps(fired)}, max|err| {err!r}")
+            f"{json.dumps(fired)}, max|err| {err!r}, peak allocation beyond "
+            f"the send and receive buffers {extra} B ({extra / GIB!r} GiB)")
         del s, r, sent, got
         torch.cuda.empty_cache()
         return resolved, fired
@@ -2681,15 +2720,15 @@ def alltoall_paths(gen, big_ok: bool) -> dict:
         iters = 10 if nbytes <= 16 * MIB else (5 if nbytes <= 64 * MIB
                                                else 3)
         resolved, fired = run(nbytes, iters=iters)
-        ran = fired.get("alltoall_phase_kernel", 0) > 0
+        ran = fired.get("alltoall_copy_kernel", 0) > 0
         if ran != (resolved == "pallas"):
             fail(f"AUTO alltoall at {nbytes} B: {resolved}, launches {fired}")
     for algo in ("xla", "flat", "pallas"):
         run(64 * MIB, Algorithm(algo))
     _, fired = run(64 * MIB, Algorithm.PALLAS, wire=True)
-    if fired.get("alltoall_phase_kernel", 0) == 0:
+    if fired.get("alltoall_copy_kernel", 0) == 0:
         fail("PALLAS alltoall with a bf16 wire did not launch "
-             "alltoall_phase_kernel")
+             "alltoall_copy_kernel")
     return counts()
 
 
@@ -4046,7 +4085,7 @@ def cm_plan(op: str, a: int, b: int, c: int, P: int) -> dict:
 # ---------------------------------------------------------------------------
 
 REPLACES = {
-    "ring_rs_kernel": "accl_tpu/parallel/pallas_ring.py:330",
+    "rs_fold_kernel": "accl_tpu/parallel/pallas_ring.py:330",
     "ring_ag_kernel": "accl_tpu/parallel/pallas_ring.py:194",
     "chunked_rs_kernel": "accl_tpu/parallel/pallas_chunked.py:82",
     "chunked_ag_kernel": "accl_tpu/parallel/pallas_chunked.py:275",
@@ -4056,7 +4095,7 @@ REPLACES = {
     "bcast_relay_kernel": "accl_tpu/parallel/pallas_chunked.py:430",
     "scatter_copy_kernel": "accl_tpu/parallel/pallas_chunked.py:570",
     "gather_copy_kernel": "accl_tpu/parallel/pallas_chunked.py:856",
-    "alltoall_phase_kernel": "accl_tpu/parallel/pallas_chunked.py:710",
+    "alltoall_copy_kernel": "accl_tpu/parallel/pallas_chunked.py:710",
     "a2a_mm_kernel": "accl_tpu/ops/collective_alltoall.py:230",
     "mm_a2a_kernel": "accl_tpu/ops/collective_alltoall.py:349",
     "agmm_kernel": "accl_tpu/ops/collective_matmul.py:418",
@@ -4080,12 +4119,12 @@ ALSO_REPLACES = {
     "agmm_kernel": "accl_tpu/ops/collective_matmul.py:676",
     "mmrs_kernel": "accl_tpu/ops/collective_matmul.py:896",
 }
-SOURCE = {"ring_rs_kernel": "ring.cu", "ring_ag_kernel": "ring.cu",
+SOURCE = {"rs_fold_kernel": "ring.cu", "ring_ag_kernel": "ring.cu",
           "chunked_rs_kernel": "ring.cu", "chunked_ag_kernel": "ring.cu",
           "combine_kernel": "plugins.cu", "cast_kernel": "plugins.cu",
           "sr_kernel": "plugins.cu", "bcast_relay_kernel": "ring.cu",
           "scatter_copy_kernel": "ring.cu", "gather_copy_kernel": "ring.cu",
-          "alltoall_phase_kernel": "ring.cu", "a2a_mm_kernel": "a2a.cu",
+          "alltoall_copy_kernel": "ring.cu", "a2a_mm_kernel": "a2a.cu",
           "mm_a2a_kernel": "a2a.cu", "agmm_kernel": "cmatmul.cu",
           "mmrs_kernel": "cmatmul.cu", "wgrad_kernel": "cmatmul.cu",
           "a2a_wgrad_kernel": "a2a.cu", "flash_fwd_kernel": "flash.cu",
@@ -4100,12 +4139,12 @@ SOURCE = {"ring_rs_kernel": "ring.cu", "ring_ag_kernel": "ring.cu",
           "flash_decode_span_kernel": "decode.cu",
           "pp_relay_kernel": "pipeline.cu"}
 #: the part of phase 3 whose launch counts each kernel's entry reports
-PART = {"ring_rs_kernel": "allreduce", "ring_ag_kernel": "allreduce",
+PART = {"rs_fold_kernel": "allreduce", "ring_ag_kernel": "allreduce",
         "chunked_rs_kernel": "allreduce", "chunked_ag_kernel": "allreduce",
         "combine_kernel": "slice2", "cast_kernel": "slice2",
         "sr_kernel": "slice2", "bcast_relay_kernel": "rooted",
         "scatter_copy_kernel": "rooted", "gather_copy_kernel": "rooted",
-        "alltoall_phase_kernel": "alltoall", "a2a_mm_kernel": "moe",
+        "alltoall_copy_kernel": "alltoall", "a2a_mm_kernel": "moe",
         "mm_a2a_kernel": "moe", "agmm_kernel": "tp_mlp",
         "mmrs_kernel": "tp_mlp", "wgrad_kernel": "tp_train",
         "a2a_wgrad_kernel": "moe_train", "flash_fwd_kernel": "context",

@@ -90,28 +90,38 @@ def test_ring_kernels_on_card(gen, monkeypatch):
 
 
 def _reduce_scatter_kernels(gen):
-    """ring_rs_kernel over P in {2, 3, 8}, every dtype, SUM and MAX, at a
-    ragged length, and MAX on +-0 / NaN; chunked_rs_kernel with each wire,
-    both directions; then the plugin combine kernel (the other fold)."""
+    """rs_fold_kernel over P in {2, 3, 8} at L 1000, 1024 and 777 (the
+    16-byte path with and without an element tail, and the element path):
+    every dtype, SUM and MAX, f32 under each wire, and MAX on +-0 / NaN;
+    chunked_rs_kernel with each wire, both directions; then the plugin
+    combine kernel (the other fold)."""
     from accl_tpu_torch.constants import reduceFunction
     from accl_tpu_torch.parallel import pallas_chunked as pc
     from accl_tpu_torch.parallel import pallas_ring as pr
     for P in (2, 3, 8):
-        for dtype in DTYPES:
-            for f in (reduceFunction.SUM, reduceFunction.MAX):
-                x = _make((P, P, 1000), dtype, gen)
-                assert torch.equal(pr.ring_reduce_scatter(x, f),
-                                   pr.plain_ring_reduce_scatter(x, f)), \
-                    (P, dtype, f.name)
+        for L in (1000, 1024, 777):
+            for dtype in DTYPES:
+                for f in (reduceFunction.SUM, reduceFunction.MAX):
+                    x = _make((P, P, L), dtype, gen)
+                    assert torch.equal(pr.ring_reduce_scatter(x, f),
+                                       pr.plain_ring_reduce_scatter(x, f)), \
+                        (P, L, dtype, f.name)
+            for wire in WIRES:
+                x = _make((P, P, L), torch.float32, gen) * 4
+                assert torch.equal(
+                    pr.ring_reduce_scatter(x, reduceFunction.SUM, wire),
+                    pr.plain_ring_reduce_scatter(x, reduceFunction.SUM,
+                                                 wire)), (P, L, wire)
     # IEEE maximum on +-0 / NaN: +0 > -0, NaN propagates
-    for dtype in (torch.float32, torch.bfloat16):
-        x = torch.where(torch.rand((8, 8, 1000), generator=gen,
-                                   device="cuda") < 0.5, 0.0, -0.0)
-        x[0, 3, ::97] = float("nan")
-        x = x.to(dtype)
-        assert _same_bits(pr.ring_reduce_scatter(x, reduceFunction.MAX),
-                          pr.plain_ring_reduce_scatter(
-                              x, reduceFunction.MAX)), dtype
+    for L in (1000, 777):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.where(torch.rand((8, 8, L), generator=gen,
+                                       device="cuda") < 0.5, 0.0, -0.0)
+            x[0, 3, ::97] = float("nan")
+            x = x.to(dtype)
+            assert _same_bits(pr.ring_reduce_scatter(x, reduceFunction.MAX),
+                              pr.plain_ring_reduce_scatter(
+                                  x, reduceFunction.MAX)), (L, dtype)
     f = reduceFunction.SUM
     for wire in WIRES:
         for bidir in (False, True):
@@ -180,7 +190,9 @@ def _relay_kernel_cases(gen):
     for the scatter and gather, an aligned one (1024), so blocks take both
     the 16-byte and the element path; 1-, 2-, 4- and 8-byte elements (f32
     with NaN and +-0). The root's row, which these kernels leave unwritten,
-    is not compared."""
+    is not compared. Then a gather whose send rows alias its receive
+    buffer, at roots 3 and 0, through the body that hands the kernel the
+    root's receive row."""
     from accl_tpu_torch.parallel import pallas_chunked as pc
 
     def data(shape, dtype):
@@ -208,6 +220,16 @@ def _relay_kernel_cases(gen):
                                  pc.plain_chunked_gather(x, root))):
                             assert _same_bits(got[keep], want[keep]), \
                                 (name, P, root, dtype, C, S)
+    # the send buffer is the receive buffer: x = dest[:, :n], n one
+    # 4096-byte segment, so the root's slot 0 is x[root]
+    P, n = 8, 1024
+    for root in (3, 0):
+        dest = data((P, P * n), torch.float32)
+        want = dest.clone()
+        want[root] = dest[:, :n].reshape(-1)
+        pc.chunked_gather_body(dest[:, :n], dest, P=P, root=root,
+                               dtype=torch.float32, segment_bytes=4096)
+        assert _same_bits(dest, want), ("aliased gather", root)
 
 
 def _cast_and_round_cases(gen):
@@ -239,8 +261,10 @@ def _accl_on_card(gen, monkeypatch):
     the flat, ring-kernel and segmented-kernel paths, each call completed
     by its request, and the rooted collectives below and above their
     kernels' 8 MiB threshold; then hop timeouts fail their requests: the
-    all-reduce's ring, the reduce's segmented reduce-scatter (its one-hop
-    gather waits on nothing) and the all-to-all."""
+    all-reduce's all-gather ring (its reduce-scatter fold waits on
+    nothing) and the reduce's segmented reduce-scatter (its one-hop gather
+    waits on nothing); the one-hop all-to-all waits on nothing and
+    completes."""
     import accl_tpu_torch as at
     from accl_tpu_torch.parallel import pallas_ring as pr
     for nbytes in (4, 1 << 20, 4 << 20, 16 << 20):
@@ -287,14 +311,15 @@ def _accl_on_card(gen, monkeypatch):
     assert ei.value.code == at.errorCode.KRNL_TIMEOUT_STS_ERROR
     req = acc.alltoall(s, d, count // 8, from_device=True, to_device=True,
                        run_async=True, algorithm=at.Algorithm.PALLAS)
-    with pytest.raises(at.ACCLError) as ei:
-        req.wait()
-    assert ei.value.code == at.errorCode.KRNL_TIMEOUT_STS_ERROR
+    req.wait()
+    assert torch.equal(d.data.view(8, 8, -1),
+                       s.data.view(8, 8, -1).transpose(0, 1))
 
 
 def _alltoall_kernels(gen):
-    """alltoall_phase_kernel against its plain version, by bits: P in {2, 3,
-    8}, one and three segments of a ragged length, 1-, 2-, 4- and 8-byte
+    """alltoall_copy_kernel against its plain version, by bits: P in {2, 3,
+    8}, one and three segments of a ragged length (777, the element path)
+    and an aligned one (1024, the 16-byte path), 1-, 2-, 4- and 8-byte
     elements (f32 with NaN and +-0). Each rank's own slot, which the kernel
     leaves unwritten, is not compared."""
     from accl_tpu_torch.parallel import pallas_chunked as pc
@@ -303,12 +328,13 @@ def _alltoall_kernels(gen):
         for dtype in (torch.int8, torch.bfloat16, torch.float32,
                       torch.int64):
             for C in (1, 3):
-                x = _specials(P * P * C * 777, gen).view(P, P, C, 777)
-                x = x.to(dtype) if dtype.is_floating_point else \
-                    x.nan_to_num(0.0).mul(50).to(dtype)
-                assert _same_bits(pc.chunked_alltoall(x)[off],
-                                  pc.plain_chunked_alltoall(x)[off]), \
-                    (P, dtype, C)
+                for S in (777, 1024):
+                    x = _specials(P * P * C * S, gen).view(P, P, C, S)
+                    x = x.to(dtype) if dtype.is_floating_point else \
+                        x.nan_to_num(0.0).mul(50).to(dtype)
+                    assert _same_bits(pc.chunked_alltoall(x)[off],
+                                      pc.plain_chunked_alltoall(x)[off]), \
+                        (P, dtype, C, S)
 
 
 def _moe_kernels(gen):

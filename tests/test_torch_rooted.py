@@ -20,7 +20,8 @@ host API (one segment) and the builders (two or three segments, the wires,
 NaN and +-0): every relay with C > 1, the gather's at roots 0 and 7 as the
 reduce's second phase (two segments and an int8 wire at root 0, a bf16
 wire at root 7). Each JAX oracle runs once per module (the ``oracle``
-cache). The JAX instance
+cache). A gather whose send buffer is its receive buffer runs the port's
+PALLAS and FLAT against the JAX XLA family. The JAX instance
 is this module's own, built once and torn down.
 """
 import jax
@@ -195,7 +196,31 @@ def test_rooted_match_jax(pair):
         _check(pair, op, _data(root, (WORLD, n), dt), root, "pallas", dt,
                comp=comp)
     _wire_cases(pair)
+    _aliased_gather(pair)
     _explicit_requests(pair[1])
+
+
+def _aliased_gather(pair):
+    """A gather whose send buffer is its receive buffer, at roots 3 and 0,
+    with n a whole segment (1024 f32 at 4096-byte segments), so the PALLAS
+    body hands the kernel the root's receive row, whose slot 0 is the
+    root's send block: the port's PALLAS and FLAT against the JAX XLA
+    family, bit for bit over the whole buffer."""
+    jacc, tacc = pair
+    n = SEG // 4
+    for root in (3, 0):
+        x = _data(80 + root, (WORLD, WORLD * n))
+        jb = jacc.create_buffer(WORLD * n, JdT.float32, host_data=x)
+        jacc.gather(jb, jb, n, root, algorithm=JAlgo.XLA)
+        want = np.asarray(jb.host)
+        assert np.array_equal(want[root, root * n:(root + 1) * n],
+                              x[root, :n]), root
+        for algo in ("pallas", "flat"):
+            tb = tacc.create_buffer(WORLD * n, at.dataType.float32,
+                                    host_data=x)
+            tacc.gather(tb, tb, n, root, algorithm=at.Algorithm(algo))
+            assert np.array_equal(_bits(want), _bits(tb.host)), \
+                ("aliased gather", algo, root)
 
 
 def _explicit_requests(tacc):

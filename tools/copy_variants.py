@@ -10,7 +10,7 @@ loop (``copy_block``), made by substituting text in the source:
 * ``one_pass_hints`` -- the same with streaming cache hints (``__ldcs``,
   ``__stcs``: ld.global.cs and st.global.cs);
 * ``persistent_u4`` -- a persistent grid (the resident CTAs of the card,
-  shared among the P-1 blocks) in a grid-stride loop that keeps four
+  shared among the launch's blocks) in a grid-stride loop that keeps four
   16-byte loads in flight per thread before it stores them.
 
 Each variant is first held against the plain copies by bits (P 3 and 8,
@@ -50,7 +50,7 @@ GRID = "  const long long bx = (vec + ACCL_THREADS - 1) / ACCL_THREADS;\n"
 PERSISTENT = """  int cap = 0;
   if (capacity(fn, &cap) != cudaSuccess) return cudaErrorInvalidValue;
   const long long want = (vec + ACCL_THREADS - 1) / ACCL_THREADS;
-  const long long fill = cap / (P - 1) > 1 ? cap / (P - 1) : 1;
+  const long long fill = cap / (gy * gz) > 1 ? cap / (gy * gz) : 1;
   const long long bx = want < fill ? want : fill;
 """
 
