@@ -30,12 +30,13 @@ any failure exits non-zero and nothing is caught and skipped:
    summation bound, with TF32 off for the plain versions) with their
    a2a-wgrad (both orientations, one and two channels), and the
    collective matmuls' all-gather x matmul and matmul x reduce-scatter
-   (worlds 2, 3 and 8, bidirectional on and off, an aligned and a ragged
-   shape, resident, k-blocked and accumulator-blocked plans, f32 and a
+   (worlds 2, 3 and 8, bidirectional on and off, aligned, ragged,
+   tile-straddling, unaligned and small-k shapes, resident, k-blocked and
+   accumulator-blocked plans, f32, bf16, f16 and mixed operands, f32 and a
    bf16 wire: integer operands bit-equal, random ones within the f32
-   summation bound) with their gathered wgrad (the same worlds and
-   channels, an aligned and a ragged shard, resident and streaming plans,
-   both orientations, f32 and a bf16 wire), and the four flash attention
+   summation bound) with their gathered wgrad (the same worlds, channels,
+   shapes and operand types, resident and streaming plans, both
+   orientations, f32 and a bf16 wire), and the four flash attention
    kernels (f32 and bf16, causal and not, d 64 / 96 / 128, H = H_kv and
    H = 4 H_kv, S 128, 1024 and 8192: f32 within 1e-5 and bf16 within 1e-2
    of each tensor's largest magnitude, every backward bit-equal over two
@@ -195,6 +196,35 @@ def log(msg: str) -> None:
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def ptxas_report(out: str) -> list:
+    """(kernel, registers, spill-store bytes) of each entry function in a
+    ``-Xptxas=-v`` build log, names demangled by ``c++filt`` where the
+    toolkit's host has it."""
+    import re
+    rows, fn, spill = [], None, 0
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and fn:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            rows.append([fn, int(m.group(1)), spill])
+            fn = None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True, timeout=60)
+        if names.returncode == 0:
+            for r, n in zip(rows, names.stdout.splitlines()):
+                r[0] = n.split("(")[0]
+    except OSError:
+        pass
+    return [tuple(r) for r in rows]
 
 
 def card_line() -> str:
@@ -500,6 +530,26 @@ def f32_sum_bound(k: int, mag):
     return 2 * k * 2.0 ** -24 * mag
 
 
+#: The card test's tolerance on the TP MLP against the CPU: rtol, and atol
+#: as a share of max|want|. A product whose f32 sum the tensor cores carry
+#: over a long k (rounding toward zero) misses it, where :func:`f32_sum_bound`,
+#: linear in k, lets it pass.
+LONG_K_TOL = (1e-5, 1e-6)
+
+
+def long_k_close(what: str, got, want) -> float:
+    """Fail unless |got - want| <= rtol |want| + atol max|want| element by
+    element (:data:`LONG_K_TOL`); returns the largest share of that
+    tolerance taken."""
+    rtol, atol = LONG_K_TOL
+    share = ((got - want).abs() / (rtol * want.abs() + atol * want.abs()
+                                   .max())).max().item()
+    if not share <= 1.0:
+        fail(f"{what} outside rtol {rtol} / atol {atol} max|want| of the "
+             f"plain version at a long k ({share!r} of it)")
+    return share
+
+
 def check_moe_kernels(gen) -> None:
     """a2a_mm_kernel, mm_a2a_kernel and a2a_wgrad_kernel against their plain
     versions at worlds 2, 3 and 8, bidirectional on and off (the wgrad's
@@ -636,16 +686,28 @@ def wgrad_budgets(ms: int, ct: int, cl: int, P: int, bidir: bool,
     return modes
 
 
+#: the operand dtype pairs of the collective-matmul checks: f32, 16-bit
+#: pairs (no split) and mixed ones (one operand split)
+CMATMUL_DTYPES = (("float32", "float32"), ("bfloat16", "bfloat16"),
+                  ("float16", "float16"), ("bfloat16", "float32"),
+                  ("float32", "float16"))
+
+
 def check_wgrad_kernel(gen) -> None:
     """wgrad_kernel against its plain version, driven by
     ``gathered_wgrad_body`` (which picks the column blocks and the channel
     split from its plan): worlds 2, 3 and 8, bidirectional on and off (P >=
-    4), an aligned shard (ms, ct, cl) = (64, 256, 256) and a ragged one (12,
-    256, 40: channel 1 from row 8), the resident and the streaming plan
-    (nctb > 1), both orientations, f32 and a bf16 wire: integer operands
-    bit-equal (the traveller past bf16's 8 bits on the wire), random ones
-    within :func:`f32_sum_bound` over the P ms products. The plain versions
-    run with TF32 off."""
+    4), an aligned shard (ms, ct, cl) = (64, 256, 256), a ragged one (12,
+    256, 40: channel 1 from row 8), one straddling the 128 x 128 block tile
+    (136, 264, 200: segments of 72 and 64 rows), one whose rows do not
+    start on 16 bytes (20, 37, 45) and the smallest contraction (8, 72, 40:
+    8 rows a rank), the resident and the streaming plan (nctb > 1), both
+    orientations, the operand dtype pairs of CMATMUL_DTYPES, f32 and a bf16
+    wire: integer operands bit-equal (the traveller past bf16's 8 bits on
+    the wire), random ones within :func:`f32_sum_bound` over the P ms
+    products. Then a long contraction, (64, 256, 256) at world 8 (512 rows),
+    random f32 within :func:`long_k_close`. The plain versions run with TF32
+    off."""
     import torch
     from accl_tpu_torch.ops import collective_matmul as cm
 
@@ -657,59 +719,87 @@ def check_wgrad_kernel(gen) -> None:
     saved = cm._VMEM_BUDGET
     try:
         for P in (2, 3, 8):
-            for ms, ct, cl in ((64, 256, 256), (12, 256, 40)):
+            for ms, ct, cl in ((64, 256, 256), (12, 256, 40),
+                               (136, 264, 200), (20, 37, 45), (8, 72, 40)):
                 for bidir in ((False, True) if P >= 4 else (False,)):
                     for wire in ("off", "bf16"):
-                        for mode, budget in wgrad_budgets(
-                                ms, ct, cl, P, bidir, wire).items():
-                            cm._VMEM_BUDGET = budget
-                            for lhs in (True, False):
-                                case = f"P={P} {(ms, ct, cl)} bidir={bidir} " \
-                                    f"wire={wire} {mode} travel_lhs={lhs}"
-                                lo = -600 if wire == "bf16" else -9
-                                trav = ints((P, ms, ct), lo, -lo)
-                                loc = ints((P, P * ms, cl), -9, 10)
+                        for tdt, ldt in CMATMUL_DTYPES:
+                            tdt, ldt = getattr(torch, tdt), getattr(torch,
+                                                                    ldt)
+                            for mode, budget in wgrad_budgets(
+                                    ms, ct, cl, P, bidir, wire).items():
+                                cm._VMEM_BUDGET = budget
+                                for lhs in (True, False):
+                                    case = f"P={P} {(ms, ct, cl)} " \
+                                        f"bidir={bidir} wire={wire} " \
+                                        f"{tdt}/{ldt} {mode} travel_lhs={lhs}"
+                                    lo = -600 if wire == "bf16" else -9
+                                    trav = ints((P, ms, ct), lo, -lo).to(tdt)
+                                    loc = ints((P, P * ms, cl), -9, 10) \
+                                        .to(ldt)
 
-                                def run(a, b):
-                                    return cm.gathered_wgrad_body(
-                                        a, b, overlap=True,
-                                        bidirectional=bidir,
-                                        wire_dtype=wire, travel_lhs=lhs)
+                                    def run(a, b):
+                                        return cm.gathered_wgrad_body(
+                                            a, b, overlap=True,
+                                            bidirectional=bidir,
+                                            wire_dtype=wire, travel_lhs=lhs)
 
-                                got = run(trav, loc)
-                                with plain_kernels():
-                                    want = run(trav, loc)
-                                if not torch.equal(got, want):
-                                    fail(f"wgrad_kernel != plain ({case})")
-                                seen.add(mode)
-                                n_cases += 1
-                                if wire == "bf16":
-                                    continue
-                                trav = torch.randn((P, ms, ct), generator=gen,
-                                                   device="cuda")
-                                loc = torch.randn((P, P * ms, cl),
-                                                  generator=gen,
-                                                  device="cuda")
-                                got = run(trav, loc)
-                                with plain_kernels():
-                                    want = run(trav, loc)
-                                    mag = run(trav.abs(), loc.abs())
-                                err = (got - want).abs()
-                                if bool((err > f32_sum_bound(P * ms,
-                                                             mag)).any()):
-                                    fail(f"wgrad_kernel random f32 outside "
-                                         f"the f32 sum bound ({case})")
-                                worst = max(worst, err.max().item())
-                                n_cases += 1
+                                    got = run(trav, loc)
+                                    with plain_kernels():
+                                        want = run(trav, loc)
+                                    if not torch.equal(got, want):
+                                        fail(f"wgrad_kernel != plain "
+                                             f"({case})")
+                                    seen.add(mode)
+                                    n_cases += 1
+                                    if wire == "bf16":
+                                        continue
+                                    trav = torch.randn(
+                                        (P, ms, ct), generator=gen,
+                                        device="cuda").to(tdt)
+                                    loc = torch.randn(
+                                        (P, P * ms, cl), generator=gen,
+                                        device="cuda").to(ldt)
+                                    got = run(trav, loc)
+                                    with plain_kernels():
+                                        want = run(trav, loc)
+                                        mag = run(trav.abs(), loc.abs())
+                                    err = (got - want).abs()
+                                    if bool((err > f32_sum_bound(
+                                            P * ms, mag)).any()):
+                                        fail(f"wgrad_kernel random operands "
+                                             f"outside the f32 sum bound "
+                                             f"({case})")
+                                    worst = max(worst, err.max().item())
+                                    n_cases += 1
     finally:
         cm._VMEM_BUDGET = saved
     for mode in ("resident", "stream"):
         if mode not in seen:
             fail(f"phase 2 never ran wgrad_kernel in its {mode} plan")
+    long_k = 0.0
+    for bidir in (False, True):
+        for lhs in (True, False):
+            trav = torch.randn((8, 64, 256), generator=gen, device="cuda")
+            loc = torch.randn((8, 512, 256), generator=gen, device="cuda")
+
+            def run(a, b):
+                return cm.gathered_wgrad_body(a, b, overlap=True,
+                                              bidirectional=bidir,
+                                              wire_dtype="off",
+                                              travel_lhs=lhs)
+
+            got = run(trav, loc)
+            with plain_kernels():
+                want = run(trav, loc)
+            long_k = max(long_k, long_k_close(
+                f"wgrad_kernel (bidir={bidir} travel_lhs={lhs})", got, want))
+            n_cases += 1
     torch.cuda.synchronize()
     log(f"phase 2: {n_cases} wgrad kernel-vs-plain cases over {sorted(seen)} "
         f"(integer operands bit-equal; random within the f32 sum bound, "
-        f"max|err| {worst!r})")
+        f"max|err| {worst!r}; at 512 rows within {LONG_K_TOL}, at most "
+        f"{long_k!r} of it)")
 
 
 def check_cmatmul_kernels(gen) -> None:
@@ -717,12 +807,17 @@ def check_cmatmul_kernels(gen) -> None:
     driven by the all-gather x matmul and matmul x reduce-scatter bodies
     (which pick the launches' row blocks, column blocks and channel split
     from their plans): worlds 2, 3 and 8, bidirectional on and off (P >=
-    4), an aligned per-rank shape (m, k, n) = (64, 256, 256) and a ragged
-    one (12, 72, 40), every plan mode the budget ladder reaches (resident,
-    k-blocked stream, accumulator blocks), f32 and a bf16 wire: integer
-    operands bit-equal (with the bf16 wire past 256, so the travelling sum
-    rounds), random ones within :func:`f32_sum_bound` (full-precision
-    wire). The plain versions run with TF32 off."""
+    4), an aligned per-rank shape (m, k, n) = (64, 256, 256), a ragged one
+    (12, 72, 40), one straddling the 128 x 128 block tile (136, 264, 200),
+    one whose rows do not start on 16 bytes (20, 37, 45) and the smallest
+    contraction (8, 8, 40: k 8 a hop), every plan mode the budget ladder
+    reaches (resident, k-blocked stream, accumulator blocks), the operand
+    dtype pairs of CMATMUL_DTYPES, f32 and a bf16 wire: integer operands
+    bit-equal (with the bf16 wire past 256, so the travelling sum rounds),
+    random ones within :func:`f32_sum_bound` (full-precision wire). Then
+    mmrs over a long contraction, (128, 512, 256) at world 8 (k 512 a hop),
+    random f32 within :func:`long_k_close`. The plain versions run with TF32
+    off."""
     import torch
     from accl_tpu_torch.ops import collective_matmul as cm
 
@@ -740,20 +835,26 @@ def check_cmatmul_kernels(gen) -> None:
     saved = cm._VMEM_BUDGET
     try:
         for P in (2, 3, 8):
-            for m, k, n in ((64, 256, 256), (12, 72, 40)):
+            for m, k, n in ((64, 256, 256), (12, 72, 40), (136, 264, 200),
+                            (20, 37, 45), (8, 8, 40)):
                 for bidir in ((False, True) if P >= 4 else (False,)):
                     for op, rows in (("agmm", m), ("mmrs", P * m)):
                         for wire in ("off", "bf16"):
                             modes = plan_budgets(op, rows, k, n, P, bidir,
                                                  wire)
-                            for mode, budget in modes.items():
+                            for (xdt, wdt), (mode, budget) in (
+                                    (d, mb) for d in CMATMUL_DTYPES
+                                    for mb in modes.items()):
+                                xdt, wdt = getattr(torch, xdt), \
+                                    getattr(torch, wdt)
                                 cm._VMEM_BUDGET = budget
                                 case = f"{op} P={P} {(m, k, n)} " \
-                                    f"bidir={bidir} wire={wire} {mode}"
+                                    f"bidir={bidir} wire={wire} " \
+                                    f"{xdt}/{wdt} {mode}"
                                 lo, hi = ((-600, 600) if op == "agmm" and
                                           wire == "bf16" else (-9, 10))
-                                x, w = ints((P, rows, k), lo, hi), \
-                                    ints((P, k, n), -9, 10)
+                                x = ints((P, rows, k), lo, hi).to(xdt)
+                                w = ints((P, k, n), -9, 10).to(wdt)
 
                                 def run(a, b):
                                     return bodies[op](a, b, overlap=True,
@@ -770,9 +871,9 @@ def check_cmatmul_kernels(gen) -> None:
                                 if wire == "bf16":
                                     continue
                                 x = torch.randn((P, rows, k), generator=gen,
-                                                device="cuda")
+                                                device="cuda").to(xdt)
                                 w = torch.randn((P, k, n), generator=gen,
-                                                device="cuda")
+                                                device="cuda").to(wdt)
                                 got = run(x, w)
                                 with plain_kernels():
                                     want = run(x, w)
@@ -780,8 +881,9 @@ def check_cmatmul_kernels(gen) -> None:
                                 err = (got - want).abs()
                                 K = k if op == "agmm" else P * k
                                 if bool((err > f32_sum_bound(K, mag)).any()):
-                                    fail(f"{op} kernel random f32 outside "
-                                         f"the f32 sum bound ({case})")
+                                    fail(f"{op} kernel random operands "
+                                         f"outside the f32 sum bound "
+                                         f"({case})")
                                 worst = max(worst, err.max().item())
                                 n_cases += 1
     finally:
@@ -790,10 +892,27 @@ def check_cmatmul_kernels(gen) -> None:
         for mode in ("resident", "stream", "nblock"):
             if (op, mode) not in seen:
                 fail(f"phase 2 never ran {op} in its {mode} plan")
+    long_k = 0.0
+    for bidir in (False, True):
+        x = torch.randn((8, 8 * 128, 512), generator=gen, device="cuda")
+        w = torch.randn((8, 512, 256), generator=gen, device="cuda")
+
+        def run(a, b):
+            return cm.matmul_reduce_scatter_body(a, b, overlap=True,
+                                                 bidirectional=bidir,
+                                                 wire_dtype="off")
+
+        got = run(x, w)
+        with plain_kernels():
+            want = run(x, w)
+        long_k = max(long_k, long_k_close(f"mmrs kernel (bidir={bidir})",
+                                          got, want))
+        n_cases += 1
     torch.cuda.synchronize()
     log(f"phase 2: {n_cases} collective-matmul kernel-vs-plain cases over "
         f"{sorted(seen)} (integer operands bit-equal; random within the f32 "
-        f"sum bound, max|err| {worst!r})")
+        f"sum bound, max|err| {worst!r}; mmrs at k 512 within {LONG_K_TOL}, "
+        f"at most {long_k!r} of it)")
 
 
 def measure_kernels(gen, big_ok: bool) -> dict:
@@ -1223,133 +1342,157 @@ def plan_note(plan: dict) -> str:
             f"{plan.get('nmb', plan.get('nnb', 1))}")
 
 
-def measure_cmatmul_kernels(gen) -> dict:
-    """agmm_kernel, mmrs_kernel and wgrad_kernel at the shapes phases 3f and
-    3g give them at Megatron-LM 8.3B's width (f32, P 8): agmm x (8, 256,
-    3072) with w1's column blocks (8, 3072, 1536) in one launch (the stream
-    plan's nmb 1); mmrs the activations (8, 2048, 1536) with w2's row
-    blocks (8, 1536, 3072) in two launches, one per 1536-column block (nnb
-    2); wgrad x (8, 256, 3072) travelling against dy (8, 2048, 1536) into
-    dw (8, 3072, 1536) in four launches, one per 768-column block of the
-    traveller (nctb 4); each call's launches timed together. Bounds: the
-    larger of the bytes (inputs read once, the output written once) over
-    3.35 TB/s and the 2 P (P m) k n f32 operations over the CUDA cores'
-    rate (:func:`f32_peak_flops`); the TF32 tensor cores' is the later
-    target. Library: ``torch.matmul(x.reshape(P*m, k), w)`` for agmm,
-    ``torch.matmul(x, w).view(P, P, mc, n).sum(0)`` for mmrs and one
-    ``torch.bmm`` of the transposed gather against dy for wgrad.
-    Then the three at the lane shape (the resident plans), logged with
-    their bounds."""
+#: the kernels that run split-TF32 products on the tensor cores (three TF32
+#: products per f32 pair); agmm_kernel runs f32 on the CUDA cores
+SPLIT_TF32 = ("mmrs_kernel", "wgrad_kernel")
+
+
+def cmatmul_calls(gen, P: int, m: int, k: int, n: int) -> dict:
+    """agmm_kernel, mmrs_kernel and wgrad_kernel as phases 3f and 3g call
+    them at a per-rank agmm shape (m, k, n), f32, bidirectional, each with
+    its plan's launches: agmm x (P, m, k) by w (P, k, n); mmrs the
+    activations (P, P m, n) by (P, n, k), one launch per column block;
+    wgrad x (P, m, k) travelling against dy (P, P m, n), one launch per
+    column block of the traveller. Per name: (kernel, plain, library,
+    |a| |b| through the plain version, flops, bytes, K, shapes, plan)."""
     import torch
     from accl_tpu_torch.ops import collective_matmul as cm
+    x, xr, w = cmatmul_operands(gen, P, m, k, n)
+    wr = torch.randn((P, n, k), generator=gen, device="cuda") * n ** -0.5
+    hr = xr[..., :n].contiguous()
+    ag_plan = cm.agmm_plan(m, k, n, P, torch.float32, True)
+    rs_plan = cm.mmrs_plan(P * m, n, k, P, torch.float32, True)
+    ag_half = min(ag_plan.get("mb", ag_plan["mp"]) // 2, m)
+    nb = rs_plan.get("nb", rs_plan["np"])
+    blocks = [(j * nb, min((j + 1) * nb, k))
+              for j in range(rs_plan.get("nnb", 1))]
+    split = min(rs_plan["cp"] // 2, m)
+    ag_k, ag_p = (torch.empty((P, P * m, n), device="cuda")
+                  for _ in range(2))
+    rs_k, rs_p = (torch.empty((P, m, k), device="cuda") for _ in range(2))
+    # dw of the all-gather x matmul: x travels against dy (P, P m, n)
+    dy = torch.randn((P, P * m, n), generator=gen, device="cuda")
+    dw_plan = cm.wgrad_plan(m, k, n, P, torch.float32, torch.float32, True)
+    ctb = dw_plan.get("ctb", dw_plan["ctp"])
+    dw_blocks = [(j * ctb, min((j + 1) * ctb, k))
+                 for j in range(dw_plan.get("nctb", 1))]
+    dw_split = min(dw_plan["msp"] // 2, m)
+    dw_k, dw_p = (torch.empty((P, k, n), device="cuda") for _ in range(2))
 
-    peak = f32_peak_flops()
-    P = MEGATRON["tp"]
+    def rs(fn, out, a=hr, b=wr):
+        for cols in blocks:
+            fn(a, b, out, cols, split)
+        return out
+
+    def dw(fn, out, a=x, b=dy):
+        for cols in dw_blocks:
+            fn(a, b, out, cols, dw_split)
+        return out
+
+    return {
+        "agmm_kernel": (
+            lambda: cm.agmm(x, w, ag_k, (0, m), ag_half),
+            lambda: cm.plain_agmm(x, w, ag_p, (0, m)),
+            lambda: torch.matmul(x.reshape(P * m, k), w),
+            lambda: cm.plain_agmm(x.abs(), w.abs()),
+            2 * P * (P * m) * k * n,
+            (x.numel() + w.numel() + ag_k.numel()) * 4, k,
+            [list(x.shape), list(w.shape)], ag_plan),
+        "mmrs_kernel": (
+            lambda: rs(cm.mmrs, rs_k), lambda: rs(cm.plain_mmrs, rs_p),
+            lambda: torch.matmul(hr, wr).view(P, P, m, k).sum(0),
+            lambda: rs(cm.plain_mmrs, torch.empty_like(rs_p), hr.abs(),
+                       wr.abs()),
+            2 * P * (P * m) * n * k,
+            (hr.numel() + wr.numel() + rs_k.numel()) * 4, P * n,
+            [list(hr.shape), list(wr.shape)], rs_plan),
+        "wgrad_kernel": (
+            lambda: dw(cm.wgrad, dw_k), lambda: dw(cm.plain_wgrad, dw_p),
+            lambda: torch.bmm(x.reshape(P * m, k).t().expand(P, k, P * m),
+                              dy),
+            lambda: dw(cm.plain_wgrad, torch.empty_like(dw_p), x.abs(),
+                       dy.abs()),
+            2 * P * (P * m) * k * n,
+            (x.numel() + dy.numel() + dw_k.numel()) * 4, P * m,
+            [list(x.shape), list(dy.shape)], dw_plan)}
+
+
+def cmatmul_bounds(name: str, flops: int, nbytes: int, peak: float) -> dict:
+    """A collective-matmul kernel's bounds in ms: the bytes (inputs read
+    once, the output written once) over 3.35 TB/s, against its operations
+    over the rate of the units it runs on: split TF32 (SPLIT_TF32: three
+    TF32 products per f32 multiply-add pair, over the tensor cores' 495
+    TFLOP/s) or f32 on the CUDA cores (``peak``). Beside them the f32
+    CUDA-core bound and the plain TF32 one."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    f32 = flops / peak * 1e3
+    ops = 3 * flops / TF32_TC_FLOPS * 1e3 if name in SPLIT_TF32 else f32
+    return {"bound_ms": max(by_bytes, ops),
+            "bound_by": "bytes" if by_bytes >= ops else "operations",
+            "f32_core_bound_ms": max(by_bytes, f32),
+            "tensor_core_bound_ms": max(by_bytes,
+                                        flops / TF32_TC_FLOPS * 1e3)}
+
+
+def cmatmul_turns(gen, shape, iters: int) -> dict:
+    """Each kernel of :func:`cmatmul_calls` at a per-rank shape (P 8): its
+    result held within :func:`f32_sum_bound` of the plain version's, then
+    timed in turns with the plain version and the library call
+    (:func:`time_in_turns`, the host's launch work hidden). Per name:
+    shapes, plan, max_abs_err, ms, plain_ms, library_ms, flops, bytes."""
+    import torch
     res = {}
-
-    def calls(m, k, n):
-        """(kernel, plain, library, flops, bytes, K) per kernel name at a
-        per-rank agmm shape (m, k, n); mmrs takes (P m, n) x (n, k)."""
-        x, xr, w = cmatmul_operands(gen, P, m, k, n)
-        wr = torch.randn((P, n, k), generator=gen, device="cuda") \
-            * n ** -0.5
-        hr = xr[..., :n].contiguous()
-        ag_plan = cm.agmm_plan(m, k, n, P, torch.float32, True)
-        rs_plan = cm.mmrs_plan(P * m, n, k, P, torch.float32, True)
-        ag_half = min(ag_plan.get("mb", ag_plan["mp"]) // 2, m)
-        nb = rs_plan.get("nb", rs_plan["np"])
-        blocks = [(j * nb, min((j + 1) * nb, k))
-                  for j in range(rs_plan.get("nnb", 1))]
-        split = min(rs_plan["cp"] // 2, m)
-        ag_k, ag_p = (torch.empty((P, P * m, n), device="cuda")
-                      for _ in range(2))
-        rs_k, rs_p = (torch.empty((P, m, k), device="cuda")
-                      for _ in range(2))
-        # dw of the all-gather x matmul: x travels against dy (P, P m, n)
-        dy = torch.randn((P, P * m, n), generator=gen, device="cuda")
-        dw_plan = cm.wgrad_plan(m, k, n, P, torch.float32, torch.float32,
-                                True)
-        ctb = dw_plan.get("ctb", dw_plan["ctp"])
-        dw_blocks = [(j * ctb, min((j + 1) * ctb, k))
-                     for j in range(dw_plan.get("nctb", 1))]
-        dw_split = min(dw_plan["msp"] // 2, m)
-        dw_k, dw_p = (torch.empty((P, k, n), device="cuda")
-                      for _ in range(2))
-
-        def rs(fn, out):
-            for cols in blocks:
-                fn(hr, wr, out, cols, split)
-            return out
-
-        def dw(fn, out, a=x, b=dy):
-            for cols in dw_blocks:
-                fn(a, b, out, cols, dw_split)
-            return out
-
-        return {
-            "agmm_kernel": (
-                lambda: cm.agmm(x, w, ag_k, (0, m), ag_half),
-                lambda: cm.plain_agmm(x, w, ag_p, (0, m)),
-                lambda: torch.matmul(x.reshape(P * m, k), w),
-                lambda: cm.plain_agmm(x.abs(), w.abs()),
-                2 * P * (P * m) * k * n,
-                (x.numel() + w.numel() + ag_k.numel()) * 4, k,
-                [list(x.shape), list(w.shape)], ag_plan),
-            "mmrs_kernel": (
-                lambda: rs(cm.mmrs, rs_k), lambda: rs(cm.plain_mmrs, rs_p),
-                lambda: torch.matmul(hr, wr).view(P, P, m, k).sum(0),
-                lambda: cm.plain_mmrs(hr.abs(), wr.abs(), split=split),
-                2 * P * (P * m) * n * k,
-                (hr.numel() + wr.numel() + rs_k.numel()) * 4, P * n,
-                [list(hr.shape), list(wr.shape)], rs_plan),
-            "wgrad_kernel": (
-                lambda: dw(cm.wgrad, dw_k), lambda: dw(cm.plain_wgrad, dw_p),
-                lambda: torch.bmm(x.reshape(P * m, k).t().expand(P, k, P * m),
-                                  dy),
-                lambda: dw(cm.plain_wgrad, torch.empty_like(dw_p), x.abs(),
-                           dy.abs()),
-                2 * P * (P * m) * k * n,
-                (x.numel() + dy.numel() + dw_k.numel()) * 4, P * m,
-                [list(x.shape), list(dy.shape)], dw_plan)}
-
-    tokens = MEGATRON["tokens"]
-    mega = calls(tokens // P, MEGATRON["d"], MEGATRON["h"] // P)
-    for name, (kern, plain, lib, absf, flops, nbytes, K, shape,
-               plan) in mega.items():
+    calls = cmatmul_calls(gen, MEGATRON["tp"], *shape)
+    for name, (kern, plain, lib, absf, flops, nbytes, K, shapes,
+               plan) in calls.items():
         got, want, mag = kern(), plain(), absf()
         err = (got - want).abs()
         if bool((err > f32_sum_bound(K, mag)).any()):
-            fail(f"{name} outside the f32 sum bound at the main-path shape")
-        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        by_ops = flops / peak * 1e3
-        res[name] = {
-            "shape": shape, "max_abs_err": err.max().item(),
-            "ms": time_ms(kern, 5), "plain_ms": time_ms(plain, 5),
-            "library_ms": time_ms(lib, 5),
-            "bound_ms": max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "tensor_core_bound_ms": max(by_bytes,
-                                        flops / TF32_TC_FLOPS * 1e3)}
-        r = res[name]
-        log(f"  {name} {shape} ({plan_note(plan)}): kernel {r['ms']!r} ms, "
-            f"plain {r['plain_ms']!r} ms, library {r['library_ms']!r} ms, "
-            f"bound {r['bound_ms']!r} ms ({r['bound_by']}; TF32 tensor "
-            f"cores {r['tensor_core_bound_ms']!r} ms), max_abs_err "
-            f"{r['max_abs_err']!r}")
+            fail(f"{name} outside the f32 sum bound at {shapes}")
         del got, want, mag
-    del mega
+        ms = time_in_turns([kern, plain, lib], iters)
+        res[name] = {"shape": shapes, "plan": plan_note(plan),
+                     "max_abs_err": err.max().item(), "ms": ms[0],
+                     "plain_ms": ms[1], "library_ms": ms[2], "flops": flops,
+                     "bytes": nbytes}
+    del calls
     torch.cuda.empty_cache()
-    lane = calls(*CMATMUL_LANE)
-    for name, (kern, plain, lib, _, flops, nbytes, _, shape,
-               plan) in lane.items():
-        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        log(f"  {name} lane shape {shape} ({plan_note(plan)}): kernel "
-            f"{time_ms(kern, 10)!r} ms, plain {time_ms(plain, 10)!r} ms, "
-            f"library {time_ms(lib, 10)!r} ms, bound "
-            f"{max(by_bytes, flops / peak * 1e3)!r} ms (TF32 tensor cores "
-            f"{max(by_bytes, flops / TF32_TC_FLOPS * 1e3)!r} ms)")
-    del lane
-    torch.cuda.empty_cache()
+    return res
+
+
+def measure_cmatmul_kernels(gen) -> dict:
+    """agmm_kernel, mmrs_kernel and wgrad_kernel at the shapes phases 3f and
+    3g give them at Megatron-LM 8.3B's width (:func:`cmatmul_calls`, P 8):
+    agmm x (8, 256, 3072) with w1's column blocks (8, 3072, 1536) in one
+    launch (the stream plan's nmb 1); mmrs the activations (8, 2048, 1536)
+    with w2's row blocks (8, 1536, 3072) in two launches, one per
+    1536-column block (nnb 2); wgrad x (8, 256, 3072) travelling against dy
+    (8, 2048, 1536) into dw (8, 3072, 1536) in four launches, one per
+    768-column block of the traveller (nctb 4); each call's launches timed
+    together, in turns with the plain version and the library call
+    (:func:`cmatmul_turns`). Bounds: :func:`cmatmul_bounds`. Library:
+    ``torch.matmul(x.reshape(P*m, k), w)`` for agmm, ``torch.matmul(x,
+    w).view(P, P, mc, n).sum(0)`` for mmrs and one ``torch.bmm`` of the
+    transposed gather against dy for wgrad. Then the three at the lane
+    shape (the resident plans), logged likewise."""
+    peak = f32_peak_flops()
+    P = MEGATRON["tp"]
+    res = {}
+    main = (MEGATRON["tokens"] // P, MEGATRON["d"], MEGATRON["h"] // P)
+    for lane, shape, iters in ((False, main, 5), (True, CMATMUL_LANE, 20)):
+        for name, r in cmatmul_turns(gen, shape, iters).items():
+            r.update(cmatmul_bounds(name, r.pop("flops"), r.pop("bytes"),
+                                    peak))
+            plan = r.pop("plan")
+            if not lane:
+                res[name] = r
+            log(f"  {name} {'lane shape ' if lane else ''}{r['shape']} "
+                f"({plan}), in turns: kernel {r['ms']!r} ms, plain "
+                f"{r['plain_ms']!r} ms, library {r['library_ms']!r} ms, bound "
+                f"{r['bound_ms']!r} ms ({r['bound_by']}; f32 CUDA cores "
+                f"{r['f32_core_bound_ms']!r}, TF32 "
+                f"{r['tensor_core_bound_ms']!r}), max_abs_err "
+                f"{r['max_abs_err']!r}")
     return res
 
 
@@ -4173,9 +4316,9 @@ def main() -> int:
         cuda_build.load(lib)
     log(f"phase 1: built {sorted(cuda_build.SOURCES)} in {secs:.1f} s")
     for name, out in cuda_build.build_log.items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  nvcc[{name}]: {line.strip()}")
+        for fn, regs, spill in ptxas_report(out):
+            log(f"  nvcc[{name}]: {fn}: {regs} registers, {spill} B spill "
+                f"stores")
     name = torch.cuda.get_device_name(0)
     card = card_line()
     log(f"device: {name}; nvidia-smi: {card}")
@@ -4243,6 +4386,7 @@ def main() -> int:
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
             "shape": m["shape"]}
         for extra in ("ring_bound_ms", "tensor_core_bound_ms",
+                      "f32_core_bound_ms",
                       "live_pages", "useful_gflop", "segments", "general_ms",
                       "causal_ms", "causal_general_ms", "causal_library_ms",
                       "causal_bound_ms"):

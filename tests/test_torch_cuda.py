@@ -372,96 +372,141 @@ def _moe_kernels(gen):
                             ("a2a_wgrad", case, nchan, lhs, tdt)
 
 
+#: the operand dtype pairs of the collective-matmul cases: f32, 16-bit pairs
+#: (the split-TF32 kernels take them unsplit) and mixed ones
+_CM_DTYPES = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+              (torch.float16, torch.float16), (torch.bfloat16, torch.float32),
+              (torch.float32, torch.float16))
+
+
+def _f32_sum_bound(k, mag):
+    """Two f32 sums of the same k products in different orders each lie
+    within k 2^-24 sum|a b| of the exact value."""
+    return 2 * k * 2.0 ** -24 * mag
+
+
 def _cmatmul_kernels(gen):
     """agmm_kernel, mmrs_kernel and wgrad_kernel against their plain
     versions on integer-valued operands (exact), through the bodies, whose
     plans pick the launches: worlds 2, 3 and 8, bidirectional off and on (P
-    >= 4), an aligned and a ragged per-rank shape, the resident plan and,
-    with the plan budget pinched, the k-blocked and the accumulator-blocked
-    ones (the wgrad's streaming column blocks), f32 and a bf16 wire (the
-    travelling sum past 256, so it rounds), the wgrad in both
-    orientations."""
+    >= 4), an aligned per-rank shape, a ragged one, one straddling the 128
+    x 128 block tile and one whose rows do not start on 16 bytes, the
+    resident plan and, with the plan budget pinched, the k-blocked and the
+    accumulator-blocked ones (the wgrad's streaming column blocks), the
+    operand dtype pairs of _CM_DTYPES, f32 and a bf16 wire (the travelling
+    sum past 256, so it rounds), the wgrad in both orientations; then
+    random operands at the smallest contraction (k 8 a hop, 8 rows a rank)
+    within :func:`_f32_sum_bound` of the plain versions."""
     from accl_tpu_torch.ops import collective_matmul as cm
 
     def ints(shape, lo=-9, hi=10):
         return torch.randint(lo, hi, shape, generator=gen, device="cuda") \
             .float()
 
-    _wgrad_kernel_cases(cm, ints)
+    _wgrad_kernel_cases(cm, ints, gen)
     kernels = (cm.agmm, cm.mmrs)
     saved = cm._VMEM_BUDGET
+
+    def both(x, xr, w, bidir, wire):
+        return (cm.all_gather_matmul_body(x, w, overlap=True,
+                                          bidirectional=bidir,
+                                          wire_dtype=wire),
+                cm.matmul_reduce_scatter_body(xr, w, overlap=True,
+                                              bidirectional=bidir,
+                                              wire_dtype=wire))
+
+    def plain(*args):
+        cm.agmm, cm.mmrs = cm.plain_agmm, cm.plain_mmrs
+        try:
+            return both(*args)
+        finally:
+            cm.agmm, cm.mmrs = kernels
+
     try:
         for P in (2, 3, 8):
-            for m, k, n in ((32, 256, 256), (12, 72, 40)):
-                x, xr, w = ints((P, m, k)), ints((P, P * m, k)), \
-                    ints((P, k, n))
-                for budget in (12 << 20, 200 << 10, 96 << 10):
-                    cm._VMEM_BUDGET = budget
-                    for bidir in ((False, True) if P >= 4 else (False,)):
-                        for wire in ("off", "bf16"):
-                            case = (P, m, k, n, budget, bidir, wire)
-                            got = (cm.all_gather_matmul_body(
-                                       x, w, overlap=True,
-                                       bidirectional=bidir,
-                                       wire_dtype=wire),
-                                   cm.matmul_reduce_scatter_body(
-                                       xr, w, overlap=True,
-                                       bidirectional=bidir,
-                                       wire_dtype=wire))
-                            cm.agmm, cm.mmrs = cm.plain_agmm, cm.plain_mmrs
-                            try:
-                                want = (cm.all_gather_matmul_body(
-                                            x, w, overlap=True,
-                                            bidirectional=bidir,
-                                            wire_dtype=wire),
-                                        cm.matmul_reduce_scatter_body(
-                                            xr, w, overlap=True,
-                                            bidirectional=bidir,
-                                            wire_dtype=wire))
-                            finally:
-                                cm.agmm, cm.mmrs = kernels
-                            assert torch.equal(got[0], want[0]), \
-                                ("agmm", case)
-                            assert torch.equal(got[1], want[1]), \
-                                ("mmrs", case)
+            for m, k, n in ((32, 256, 256), (12, 72, 40), (136, 264, 200),
+                            (20, 37, 45)):
+                for xdt, wdt in _CM_DTYPES:
+                    x, xr, w = ints((P, m, k)).to(xdt), \
+                        ints((P, P * m, k)).to(xdt), ints((P, k, n)).to(wdt)
+                    for budget in (12 << 20, 200 << 10, 96 << 10):
+                        cm._VMEM_BUDGET = budget
+                        for bidir in ((False, True) if P >= 4 else (False,)):
+                            for wire in ("off", "bf16"):
+                                case = (P, m, k, n, xdt, wdt, budget, bidir,
+                                        wire)
+                                got = both(x, xr, w, bidir, wire)
+                                want = plain(x, xr, w, bidir, wire)
+                                assert torch.equal(got[0], want[0]), \
+                                    ("agmm", case)
+                                assert torch.equal(got[1], want[1]), \
+                                    ("mmrs", case)
+            cm._VMEM_BUDGET = saved
+            x, xr, w = (torch.randn(s, generator=gen, device="cuda")
+                        for s in ((P, 8, 8), (P, P * 8, 8), (P, 8, 40)))
+            got, want = both(x, xr, w, True, "off"), \
+                plain(x, xr, w, True, "off")
+            mag = plain(x.abs(), xr.abs(), w.abs(), True, "off")
+            for i, K in enumerate((8, P * 8)):
+                assert bool(((got[i] - want[i]).abs()
+                             <= _f32_sum_bound(K, mag[i])).all()), \
+                    ("random", ("agmm", "mmrs")[i], P)
     finally:
         cm._VMEM_BUDGET = saved
 
 
-def _wgrad_kernel_cases(cm, ints):
+def _wgrad_kernel_cases(cm, ints, gen):
     """wgrad_kernel through ``gathered_wgrad_body`` against the same body
     on its plain version: worlds 2, 3 and 8, one and two channels, an
-    aligned and a ragged shard (ms 12: channel 1 from row 8), the resident
-    plan and the streaming one (ct in 128-column blocks), both
-    orientations, f32 and a bf16 wire (traveller past bf16's 8 bits)."""
+    aligned and a ragged shard (ms 12: channel 1 from row 8), one
+    straddling the 128 x 128 block tile and one whose rows do not start on
+    16 bytes, the resident plan and the streaming one (ct in 128-column
+    blocks), both orientations, the operand dtype pairs of _CM_DTYPES, f32
+    and a bf16 wire (traveller past bf16's 8 bits); then random operands at
+    the smallest contraction (8 rows a rank) within :func:`_f32_sum_bound`."""
     saved = cm._VMEM_BUDGET
+
+    def run(trav, loc, bidir, wire, lhs):
+        return cm.gathered_wgrad_body(trav, loc, overlap=True,
+                                      bidirectional=bidir, wire_dtype=wire,
+                                      travel_lhs=lhs)
+
+    def plain(*args):
+        kernel, cm.wgrad = cm.wgrad, cm.plain_wgrad
+        try:
+            return run(*args)
+        finally:
+            cm.wgrad = kernel
+
     try:
         for P in (2, 3, 8):
-            for ms, ct, cl in ((32, 256, 128), (12, 256, 40)):
-                for budget in (12 << 20, 150 << 10):
-                    cm._VMEM_BUDGET = budget
-                    for bidir in ((False, True) if P >= 4 else (False,)):
-                        for lhs in (True, False):
-                            for wire in ("off", "bf16"):
-                                case = (P, ms, ct, cl, budget, bidir, lhs,
-                                        wire)
-                                lo = -600 if wire == "bf16" else -9
-                                trav = ints((P, ms, ct), lo, -lo)
-                                loc = ints((P, P * ms, cl))
-
-                                def run():
-                                    return cm.gathered_wgrad_body(
-                                        trav, loc, overlap=True,
-                                        bidirectional=bidir,
-                                        wire_dtype=wire, travel_lhs=lhs)
-                                got = run()
-                                kernel, cm.wgrad = cm.wgrad, cm.plain_wgrad
-                                try:
-                                    want = run()
-                                finally:
-                                    cm.wgrad = kernel
-                                assert torch.equal(got, want), \
-                                    ("wgrad", case)
+            for ms, ct, cl in ((32, 256, 128), (12, 256, 40), (136, 264, 200),
+                               (20, 37, 45)):
+                for tdt, ldt in _CM_DTYPES:
+                    for budget in (12 << 20, 150 << 10):
+                        cm._VMEM_BUDGET = budget
+                        for bidir in ((False, True) if P >= 4 else (False,)):
+                            for lhs in (True, False):
+                                for wire in ("off", "bf16"):
+                                    case = (P, ms, ct, cl, tdt, ldt, budget,
+                                            bidir, lhs, wire)
+                                    lo = -600 if wire == "bf16" else -9
+                                    trav = ints((P, ms, ct), lo, -lo).to(tdt)
+                                    loc = ints((P, P * ms, cl)).to(ldt)
+                                    args = (trav, loc, bidir, wire, lhs)
+                                    assert torch.equal(run(*args),
+                                                       plain(*args)), \
+                                        ("wgrad", case)
+            cm._VMEM_BUDGET = saved
+            trav = torch.randn((P, 8, 72), generator=gen, device="cuda")
+            loc = torch.randn((P, P * 8, 40), generator=gen, device="cuda")
+            for lhs in (True, False):
+                got, want = run(trav, loc, True, "off", lhs), \
+                    plain(trav, loc, True, "off", lhs)
+                mag = plain(trav.abs(), loc.abs(), True, "off", lhs)
+                assert bool(((got - want).abs()
+                             <= _f32_sum_bound(P * 8, mag)).all()), \
+                    ("random wgrad", P, lhs)
     finally:
         cm._VMEM_BUDGET = saved
 
